@@ -47,7 +47,7 @@ def _compare(fields, waves, el, bl, pol):
     jcfg, tcfg = _configs(**fields)
     ref = jchain.full_chain_step(jnp.asarray(waves), jnp.asarray(el), jnp.asarray(bl),
                                  jnp.asarray(pol), jcfg)
-    batch = tchain.batch_from_numpy(waves, el, bl, pol)
+    batch = tchain.batch_from_numpy(waves, el, bl, pol, device="cpu")
     _assert_same(ref, tchain.full_chain_step(*batch, tcfg), "full_chain_step")
     _assert_same(ref, chain_scan_cuda(*batch, tcfg), "chain_scan_cuda")
     return ref
@@ -109,7 +109,7 @@ def test_chain_boundary_plateaus():
 
 def test_chain_s1_s2_classification():
     jcfg, tcfg = _configs(**BENCH_CFG)
-    batch = tchain.example_chain_batch(32, 128)
+    batch = tchain.example_chain_batch(32, 128, device="cpu")
     jbatch = jchain.example_chain_batch(32, 128)
     for a, b in zip(jbatch, batch):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
@@ -133,7 +133,7 @@ def test_chain_against_pallas_kernel_interpret():
     jcfg, tcfg = _configs(**PULSE_CFG)
     ref = chain_scan_pallas(jnp.asarray(waves), jnp.asarray(el), jnp.asarray(bl),
                             jnp.asarray(pol), jcfg, interpret=True)
-    out = chain_scan_cuda(*tchain.batch_from_numpy(waves, el, bl, pol), tcfg)
+    out = chain_scan_cuda(*tchain.batch_from_numpy(waves, el, bl, pol, device="cpu"), tcfg)
     assert set(out) == set(ref)
     _assert_same({k: ref[k] for k in out}, out, "pallas")
     assert int(out["n_peaks"].sum()) > 0
@@ -141,7 +141,7 @@ def test_chain_against_pallas_kernel_interpret():
 
 @pytest.fixture(scope="module")
 def dense_batch():
-    return tchain.batch_from_numpy(NOISY, EL, BL, POS)
+    return tchain.batch_from_numpy(NOISY, EL, BL, POS, device="cpu")
 
 
 @pytest.mark.parametrize("policy", ["warn", "raise", "ignore"])
@@ -160,7 +160,7 @@ def test_run_chain_overflow_policy(policy, dense_batch, caplog):
 
 def test_run_chain_quiet_without_overflow_and_rejects_unknown_policy(caplog):
     _, tcfg = _configs(**BENCH_CFG)
-    batch = tchain.example_chain_batch(16, 128)
+    batch = tchain.example_chain_batch(16, 128, device="cpu")
     caplog.set_level(logging.WARNING)
     out = tchain.run_chain(*batch, tcfg, overflow_policy="raise")
     assert int(out["n_peak_overflow"]) == 0 and "overflow" not in caplog.text
@@ -174,7 +174,7 @@ def test_config_and_batch_helpers():
     assert hash(tcfg) == hash(tchain.ChainConfig.from_fields(dataclasses.asdict(tcfg)))
     with pytest.raises(TypeError, match="bogus"):
         tchain.ChainConfig.from_fields({"bogus": 1})
-    batch = tchain.batch_from_numpy(np.zeros((2, 8)), [8, 8], [1.5, 2], [1, -1])
+    batch = tchain.batch_from_numpy(np.zeros((2, 8)), [8, 8], [1.5, 2], [1, -1], device="cpu")
     assert [t.dtype for t in batch] == [torch.int16, torch.int32, torch.float32, torch.int8]
     assert set(tchain.CHAIN_OUT_KEYS) | set(tchain.CHAIN_OVERFLOW_KEYS) == set(
         chain_scan_cuda(*batch, tcfg))

@@ -1,5 +1,7 @@
 // Fused per-event chain on Hopper (sm_90a): features -> scipy-parity
 // find_peaks -> threshold-hit runs -> 10-90% widths -> S1/S2 label.
+// The candidate emission, distance pruning and ips interpolation are the
+// shared steps of scan_common.cuh.
 //
 // Replaces the TPU kernel waveformanalysis_tpu/ops/chain_scan_pallas.py
 // (_chain_scan_kernel); its contract is models/full_chain.py
@@ -45,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "scan_common.cuh"
+
 // Shared with the ctypes mirrors in ops/chain_scan_cuda.py (_Params, _Outs):
 // keep the field order and types identical.
 struct ChainParams {
@@ -75,8 +79,8 @@ struct ChainOut {
 
 namespace {
 
-constexpr float kNeg = -3.0e38f;
-constexpr float kInf = 3.0e38f;
+using wfa::kInf;
+using wfa::kNeg;
 
 template <int KT>
 __global__ void __launch_bounds__(128)
@@ -151,26 +155,8 @@ chain_scan_kernel(const int16_t* __restrict__ w, const int32_t* __restrict__ el_
       cur_x = t < det_len ? sig_t : kNeg;
       prev_xv = max(t - 1, 0) < det_len ? sign * ((float)w_prev - bl) : kNeg;
     }
-    const float d2 = cur_x - prev_xv;
-    const bool have = i_det >= 1;
-    if (have && d2 < 0.0f && prev_rise && i_det <= det_len - 1) {
-      // left_edge >= 0 and i_det - 1 >= 0: '/' is the floor division
-      const int m_pt = (left_edge + i_det - 1) / 2;
-      if (m_pt >= 1 && m_pt <= det_len - 2 && prev_xv >= P.peak_height) {
-#pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          if (k == cand_count && k < K) {
-            pos[k] = m_pt;
-            val[k] = prev_xv;
-          }
-        }
-        ++cand_count;
-      }
-    }
-    if (have && d2 != 0.0f) {
-      prev_rise = d2 > 0.0f;
-      left_edge = i_det;
-    }
+    wfa::candidate_step<KT>(i_det, cur_x, prev_xv, det_len, K, P.peak_height, pos,
+                            val, cand_count, left_edge, prev_rise);
     w_prev = w_t;
   }
 
@@ -249,32 +235,8 @@ chain_scan_kernel(const int16_t* __restrict__ w, const int32_t* __restrict__ el_
   }
 
   // ============================ distance pruning ===========================
-  unsigned cand_valid = 0u;
-#pragma unroll
-  for (int k = 0; k < KT; ++k)
-    if (k < K && cand_count > k) cand_valid |= 1u << k;
-  if (P.peak_distance > 1 && cand_valid) {
-    // priority rank: higher value first, ties -> higher slot first
-    int order[KT];
-    int lpos[KT];
-#pragma unroll
-    for (int a = 0; a < KT; ++a) {
-      int r = 0;
-#pragma unroll
-      for (int b = 0; b < KT; ++b)
-        if (b != a) r += (val[b] > val[a]) || (val[b] == val[a] && b > a);
-      order[r] = a;
-      lpos[a] = pos[a];
-    }
-    unsigned keep = cand_valid;
-    for (int r = 0; r < KT; ++r) {
-      const int a = order[r];
-      if (!((cand_valid & keep) >> a & 1u)) continue;
-      for (int b = 0; b < KT; ++b)
-        if (b != a && abs(lpos[b] - lpos[a]) < P.peak_distance) keep &= ~(1u << b);
-    }
-    cand_valid &= keep;
-  }
+  const unsigned cand_valid = wfa::distance_prune<KT>(
+      pos, val, wfa::candidate_mask<KT>(cand_count, K), P.peak_distance);
 
   // ============================ passes 2 + 3 ===============================
   float prom[KT], lip[KT], rip[KT];
@@ -331,7 +293,7 @@ chain_scan_kernel(const int16_t* __restrict__ w, const int32_t* __restrict__ el_
 #pragma unroll
     for (int k = 0; k < KT; ++k) {
       prom[k] = val[k] - fmaxf(lmin[k], rmin[k]);
-      h_eval[k] = __fsub_rn(val[k], __fmul_rn(prom[k], P.rel_height));
+      h_eval[k] = wfa::rel_height_level(val[k], prom[k], P.rel_height);
       jl[k] = -1;
       jr[k] = L;
       xl[k] = kNeg;
@@ -373,19 +335,8 @@ chain_scan_kernel(const int16_t* __restrict__ w, const int32_t* __restrict__ el_
         prom[k] = 0.0f;
         continue;
       }
-      const float hev = h_eval[k];
-      if (jl[k] >= 0) {
-        const float dl = xl1[k] != xl[k] ? xl1[k] - xl[k] : 1.0f;
-        lip[k] = xl[k] < hev ? (float)jl[k] + __fdiv_rn(hev - xl[k], dl) : (float)jl[k];
-      } else {
-        lip[k] = (float)lbase[k];
-      }
-      if (jr[k] < L) {
-        const float dr = xr1[k] != xr[k] ? xr1[k] - xr[k] : 1.0f;
-        rip[k] = xr[k] < hev ? (float)jr[k] - __fdiv_rn(hev - xr[k], dr) : (float)jr[k];
-      } else {
-        rip[k] = (float)rbase[k];
-      }
+      lip[k] = wfa::left_ips(jl[k], xl[k], xl1[k], h_eval[k], lbase[k]);
+      rip[k] = wfa::right_ips(jr[k], xr[k], xr1[k], h_eval[k], rbase[k], L);
       if (prom[k] >= P.peak_prominence && rip[k] - lip[k] >= P.peak_width)
         final_valid |= 1u << k;
     }

@@ -2,9 +2,11 @@
 
 A kernel source is compiled at its first use, never at import, into a
 shared library with a plain C interface under ``<checkout>/build/kernels``.
-The file name carries a hash of the source and the flags, so an edited
-source or flag set builds anew and an unchanged one is reused. ``ptxas -v``
-output (registers, spills) goes to a log beside the library.
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source, header or flag set
+builds anew and an unchanged one is reused. ``ptxas -v`` output (registers,
+spills) goes to a log beside the library. ``build_all`` compiles several
+sources at once, one nvcc process each.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -85,7 +88,10 @@ def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` (once per source hash) and load it."""
     src = CSRC_DIR / f"{name}.cu"
     nvcc = find_nvcc()
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    key = digest.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = BUILD_DIR / f"{name}_{key}.so"
     log = BUILD_DIR / f"{name}_{key}.log"
@@ -109,3 +115,10 @@ def build(name: str) -> Built:
     lib = ctypes.CDLL(str(so))
     return Built(lib=lib, path=so, log=log, seconds=seconds,
                  ptxas=parse_ptxas(log.read_text()) if log.exists() else [])
+
+
+def build_all(names: Sequence[str]) -> Dict[str, Built]:
+    """Build several sources concurrently (one nvcc each); name -> Built."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(len(names), 1)) as pool:
+        return dict(zip(names, pool.map(build, names)))

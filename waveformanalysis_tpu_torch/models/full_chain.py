@@ -69,7 +69,7 @@ def batch_from_numpy(
     event_length: np.ndarray,
     baselines: np.ndarray,
     polarity_codes: np.ndarray,
-    device: Union[str, torch.device, None] = "cpu",
+    device: Union[str, torch.device, None] = "cuda",
 ) -> Batch:
     """Move a numpy batch to ``device`` with the chain's dtypes:
     int16 waves, int32 lengths, float32 baselines, int8 polarity codes."""
@@ -250,7 +250,7 @@ def example_chain_batch(
     n_events: int = 256,
     wave_length: int = 256,
     seed: int = 0,
-    device: Union[str, torch.device, None] = "cpu",
+    device: Union[str, torch.device, None] = "cuda",
 ) -> Batch:
     """Synthetic mixed S1/S2 batch (positive pulses) for the chain; the same
     numbers as the JAX package's example_chain_batch for the same seed."""

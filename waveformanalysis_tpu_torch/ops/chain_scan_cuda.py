@@ -1,13 +1,23 @@
-"""The fused chain through one hand-written CUDA kernel (``csrc/chain_scan.cu``).
+"""Streaming-scan kernels of the chain, hand-written in CUDA.
 
-Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py`` (``chain_scan_pallas``,
-``make_jit_chain_scan``): the same 12 per-event outputs as
-``full_chain_step``, ``label`` as int8, and the two int32 overflow scalars
-derived from the raw per-event candidate/run counts.
+Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
 
-On CUDA tensors the wrapper launches the kernel or raises; on CPU tensors
-it runs the plain PyTorch version, ``models.full_chain.full_chain_step``,
-which is the contract the kernel is held to.
+- ``chain_scan_cuda`` / ``make_chain_scan`` (``csrc/chain_scan.cu``): the
+  fused chain, the same 12 per-event outputs as ``full_chain_step``,
+  ``label`` as int8, and the two int32 overflow scalars derived from the
+  raw per-event candidate/run counts;
+- ``find_peaks_scan`` (``csrc/peaks_scan.cu``): scipy-parity find_peaks,
+  the contract of ``ops.peaks.find_peaks_batch`` without a neighbour
+  threshold;
+- ``threshold_hits_scan`` (``csrc/hits_scan.cu``): threshold runs, the
+  contract of ``ops.hits.threshold_hits_batch``.
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs the plain PyTorch version named above, which is the contract the
+kernel is held to. The scan kernels agree with their plain versions on
+every slot the ``valid`` mask selects and on positions, validity and
+counts everywhere; values in slots that are not valid are not part of the
+contract (the JAX package's tests compare them the same way).
 """
 
 from __future__ import annotations
@@ -18,6 +28,8 @@ from typing import Dict, Optional
 import torch
 
 from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
+from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch
 from waveformanalysis_tpu_torch.ops.widths import _BASELINE_SAMPLES
 
 MAX_SLOTS = 32  # largest max_peaks / max_hits the kernel is instantiated for
@@ -52,17 +64,30 @@ class _Outs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name, _ in _OUTS]
 
 
-def _library() -> ctypes.CDLL:
-    """Build (at first use) and bind the kernel library."""
+def _scan_library(name: str, entry: str, argtypes) -> ctypes.CDLL:
+    """Build (at first use) ``csrc/<name>.cu`` and bind ``entry``."""
     from waveformanalysis_tpu_torch.kernels._build import build
 
-    lib = build("chain_scan").lib
-    fn = lib.wfa_chain_scan
-    fn.argtypes = [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(_Outs), ctypes.POINTER(_Params), ctypes.c_void_p,
-    ]
+    lib = build(name).lib
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return lib
+
+
+def _library() -> ctypes.CDLL:
+    return _scan_library("chain_scan", "wfa_chain_scan", [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(_Outs), ctypes.POINTER(_Params), ctypes.c_void_p,
+    ])
+
+
+def _devices(*ts) -> str:
+    """"cpu" or "cuda": the one device type of the given tensors (None
+    skipped); raises for mixed or other devices."""
+    devices = {t.device.type for t in ts if t is not None}
+    if len(devices) != 1 or devices - {"cpu", "cuda"}:
+        raise ValueError(f"expected CPU or CUDA tensors on one device type, got {sorted(devices)}")
+    return devices.pop()
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
@@ -146,12 +171,9 @@ def chain_scan_cuda(
     kernel; CPU tensors through the plain PyTorch version.
     """
     cfg = cfg or ChainConfig()
-    devices = {t.device.type for t in (waves, event_length, baselines, polarity_codes)}
-    if devices == {"cpu"}:
+    if _devices(waves, event_length, baselines, polarity_codes) == "cpu":
         return full_chain_step(waves, event_length, baselines, polarity_codes, cfg)
-    if devices == {"cuda"}:
-        return _launch(waves, event_length, baselines, polarity_codes, cfg)
-    raise ValueError(f"chain_scan_cuda takes CPU or CUDA tensors, got {sorted(devices)}")
+    return _launch(waves, event_length, baselines, polarity_codes, cfg)
 
 
 chain_scan_cuda.launches = 0  # kernel launches (not plain-version calls)
@@ -166,3 +188,173 @@ def make_chain_scan(cfg: Optional[ChainConfig] = None):
         return chain_scan_cuda(waves, event_length, baselines, polarity_codes, cfg)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# find_peaks_scan (csrc/peaks_scan.cu)
+# ---------------------------------------------------------------------------
+
+class _PeaksParams(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in ("n", "L", "K", "distance")] + [
+        (f, ctypes.c_float) for f in ("height", "prominence", "width", "rel_height")
+    ]
+
+
+# output name -> dtype, in the C struct's field order (per-slot tables first)
+_PEAKS_OUTS = (
+    ("position", torch.int32), ("valid", torch.bool),
+    ("peak_value", torch.float32), ("prominence", torch.float32),
+    ("left_ips", torch.float32), ("right_ips", torch.float32),
+    ("widths", torch.float32), ("left_bases", torch.int32),
+    ("right_bases", torch.int32), ("n_candidates", torch.int32),
+)
+
+
+class _PeaksOut(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name, _ in _PEAKS_OUTS]
+
+
+def _peaks_library() -> ctypes.CDLL:
+    return _scan_library("peaks_scan", "wfa_peaks_scan", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_PeaksOut),
+        ctypes.POINTER(_PeaksParams), ctypes.c_void_p,
+    ])
+
+
+def _tables(specs, n: int, K: int, dev) -> Dict[str, torch.Tensor]:
+    """Output tensors: (n, K) slot tables, (n,) for the last (count) entry."""
+    out = {name: torch.empty((n, K), dtype=dt, device=dev) for name, dt in specs[:-1]}
+    name, dt = specs[-1]
+    out[name] = torch.empty(n, dtype=dt, device=dev)
+    return out
+
+
+def find_peaks_scan(
+    signal: torch.Tensor,
+    height: float,
+    prominence: float,
+    width: float,
+    distance: int = 1,
+    max_peaks: int = 8,
+    rel_height: float = 0.5,
+    valid_length: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """find_peaks over an (n, L) batch (contract of
+    ``chain_scan_pallas.find_peaks_scan``).
+
+    Returns (n, K) tables position (int32, -1 where not valid), valid
+    (bool), peak_value, prominence, left_ips, right_ips, widths (float32),
+    left_bases, right_bases (int32), and n_candidates (n,) int32. CUDA
+    tensors go through the kernel, CPU tensors through ``find_peaks_batch``.
+    """
+    if _devices(signal, valid_length) == "cpu":
+        return find_peaks_batch(
+            signal, height, prominence, width, distance=distance,
+            max_peaks=max_peaks, rel_height=rel_height, valid_length=valid_length,
+        )
+    x = signal.to(torch.float32)
+    n, L = x.shape
+    K = int(max_peaks)
+    dev = x.device
+    if not 1 <= K <= MAX_SLOTS:
+        raise ValueError(f"max_peaks={K}: the CUDA peaks kernel holds 1..{MAX_SLOTS} slots")
+    vlen = (torch.full((n,), L, dtype=torch.int32, device=dev) if valid_length is None
+            else valid_length.to(torch.int32).contiguous())
+    _check(vlen, "valid_length", torch.int32, (n,), dev)
+    lib = _peaks_library()
+    with torch.cuda.device(dev):
+        x_t = x.t().contiguous()  # time-major (L, n) copy on the device
+        outs = _tables(_PEAKS_OUTS, n, K, dev)
+        ptrs = _PeaksOut(*(outs[name].data_ptr() for name, _ in _PEAKS_OUTS))
+        prm = _PeaksParams(n=n, L=L, K=K, distance=int(distance), height=height,
+                           prominence=prominence, width=width, rel_height=rel_height)
+        err = lib.wfa_peaks_scan(x_t.data_ptr(), vlen.data_ptr(), ctypes.byref(ptrs),
+                                 ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"peaks_scan kernel launch failed: cudaError {err}")
+    if n:
+        find_peaks_scan.launches += 1
+    return outs
+
+
+find_peaks_scan.launches = 0  # kernel launches (not plain-version calls)
+
+
+# ---------------------------------------------------------------------------
+# threshold_hits_scan (csrc/hits_scan.cu)
+# ---------------------------------------------------------------------------
+
+class _HitsParams(ctypes.Structure):
+    _fields_ = [(f, ctypes.c_int) for f in
+                ("n", "L", "K", "left_extension", "right_extension")]
+
+
+_HITS_OUTS = (
+    ("valid", torch.bool), ("position", torch.int32),
+    ("height", torch.float32), ("integral", torch.float32),
+    ("seg_start", torch.int32), ("seg_end", torch.int32),
+    ("run_start", torch.int32), ("run_end", torch.int32),
+    ("n_runs", torch.int32),
+)
+
+
+class _HitsOut(ctypes.Structure):
+    _fields_ = [(name, ctypes.c_void_p) for name, _ in _HITS_OUTS]
+
+
+def _hits_library() -> ctypes.CDLL:
+    return _scan_library("hits_scan", "wfa_hits_scan", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(_HitsOut), ctypes.POINTER(_HitsParams), ctypes.c_void_p,
+    ])
+
+
+def threshold_hits_scan(
+    signal: torch.Tensor,
+    thresholds: torch.Tensor,
+    valid_length: torch.Tensor,
+    left_extension: int = 2,
+    right_extension: int = 2,
+    max_hits: int = 8,
+) -> Dict[str, torch.Tensor]:
+    """Threshold runs over an (n, L) batch (contract of
+    ``chain_scan_pallas.threshold_hits_scan``).
+
+    Returns (n, K) tables valid (bool), position (int32), height, integral
+    (float32), seg_start, seg_end, run_start, run_end (int32), and n_runs
+    (n,) int32. CUDA tensors go through the kernel, CPU tensors through
+    ``threshold_hits_batch``.
+    """
+    if _devices(signal, thresholds, valid_length) == "cpu":
+        return threshold_hits_batch(
+            signal, thresholds, valid_length, left_extension=left_extension,
+            right_extension=right_extension, max_hits=max_hits,
+        )
+    x = signal.to(torch.float32)
+    n, L = x.shape
+    K = int(max_hits)
+    dev = x.device
+    if K < 1:
+        raise ValueError(f"max_hits={K}: need at least one slot")
+    thr = thresholds.to(torch.float32).contiguous()
+    vlen = valid_length.to(torch.int32).contiguous()
+    _check(thr, "thresholds", torch.float32, (n,), dev)
+    _check(vlen, "valid_length", torch.int32, (n,), dev)
+    lib = _hits_library()
+    with torch.cuda.device(dev):
+        x_t = x.t().contiguous()  # time-major (L, n) copy on the device
+        outs = _tables(_HITS_OUTS, n, K, dev)
+        ptrs = _HitsOut(*(outs[name].data_ptr() for name, _ in _HITS_OUTS))
+        prm = _HitsParams(n=n, L=L, K=K, left_extension=int(left_extension),
+                          right_extension=int(right_extension))
+        err = lib.wfa_hits_scan(x_t.data_ptr(), thr.data_ptr(), vlen.data_ptr(),
+                                ctypes.byref(ptrs), ctypes.byref(prm),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"hits_scan kernel launch failed: cudaError {err}")
+    if n:
+        threshold_hits_scan.launches += 1
+    return outs
+
+
+threshold_hits_scan.launches = 0  # kernel launches (not plain-version calls)

@@ -6,16 +6,20 @@ each run extends by left/right extensions clipped to the padded window;
 per hit: position = argmax of the extended segment (first occurrence),
 height = that max, integral = sum(max(segment, 0)). Runs compact into a
 fixed (n, K) capacity; n_runs counts them all, so overflow is visible.
+``compact_threshold_hits`` and ``threshold_columns_from_flat`` are the host
+(NumPy) helpers that turn run slot tables into THRESHOLD_HIT columns.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from waveformanalysis_tpu_torch.ops.peaks import compact_first_k
 
+KERNEL_VERSION = "hits-v1"
 DEFAULT_MAX_HITS = 32
 
 
@@ -81,4 +85,80 @@ def threshold_hits_batch(
         "run_start": starts,
         "run_end": ends,
         "n_runs": n_runs,
+    }
+
+
+def compact_threshold_hits(
+    results: Dict[str, np.ndarray],
+    timestamps: np.ndarray,
+    boards: np.ndarray,
+    channels: np.ndarray,
+    record_ids: np.ndarray,
+    dt_ns: np.ndarray,
+    record_lengths: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Flatten (n, K) run results into flat THRESHOLD_HIT columns (host)."""
+    valid = np.asarray(results["valid"])
+    rows, cols = np.nonzero(valid)
+    return threshold_columns_from_flat(
+        rows=rows,
+        position=np.asarray(results["position"])[rows, cols],
+        height=np.asarray(results["height"])[rows, cols],
+        integral=np.asarray(results["integral"])[rows, cols],
+        seg_start=np.asarray(results["seg_start"])[rows, cols],
+        seg_end=np.asarray(results["seg_end"])[rows, cols],
+        run_start=np.asarray(results["run_start"])[rows, cols],
+        run_end=np.asarray(results["run_end"])[rows, cols],
+        timestamps=timestamps, boards=boards, channels=channels,
+        record_ids=record_ids, dt_ns=dt_ns, record_lengths=record_lengths,
+    )
+
+
+def threshold_columns_from_flat(
+    rows: np.ndarray,
+    position: np.ndarray,
+    height: np.ndarray,
+    integral: np.ndarray,
+    seg_start: np.ndarray,
+    seg_end: np.ndarray,
+    run_start: np.ndarray,
+    run_end: np.ndarray,
+    timestamps: np.ndarray,
+    boards: np.ndarray,
+    channels: np.ndarray,
+    record_ids: np.ndarray,
+    dt_ns: np.ndarray,
+    record_lengths: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """THRESHOLD_HIT columns from already-compacted per-run slot values.
+
+    ``rows`` maps each run to its source waveform (row-major slot order —
+    the order ``np.nonzero(valid)`` produces). Shared by the host compaction
+    above and the device-compacted fused-bundle transfer path.
+    """
+    pos = np.asarray(position).astype(np.int64)
+    start = np.asarray(run_start).astype(np.int64)
+    end = np.asarray(run_end).astype(np.int64)
+    seg_s = np.asarray(seg_start).astype(np.int64)
+    seg_e = np.asarray(seg_end).astype(np.int64)
+    dt = np.asarray(dt_ns, dtype=np.int64)[rows]
+    rec_len = np.asarray(record_lengths, dtype=np.int64)[rows]
+
+    edge_start = np.clip(seg_s, 0, rec_len)
+    edge_end = np.maximum(np.clip(seg_e, 0, rec_len), edge_start)
+
+    return {
+        "position": pos,
+        "height": np.asarray(height).astype(np.float32),
+        "integral": np.asarray(integral).astype(np.float32),
+        "edge_start": edge_start.astype(np.int32),
+        "edge_end": edge_end.astype(np.int32),
+        "width": (edge_end - edge_start).astype(np.float32),
+        "dt": dt.astype(np.int32),
+        "rise_time": (np.maximum(pos - start, 0) * dt).astype(np.float32),
+        "fall_time": (np.maximum((end - 1) - pos, 0) * dt).astype(np.float32),
+        "timestamp": np.asarray(timestamps, dtype=np.int64)[rows] + pos * dt * 1000,
+        "board": np.asarray(boards, dtype=np.int16)[rows],
+        "channel": np.asarray(channels, dtype=np.int16)[rows],
+        "record_id": np.asarray(record_ids, dtype=np.int64)[rows],
     }

@@ -7,15 +7,19 @@ difference, the height (and optional neighbour-threshold) filter,
 compaction of the first K candidates by position, greedy distance pruning
 by height priority, prominence with full-window bases, and rel_height
 interpolated left/right ips. Ties in the distance pruning resolve like the
-JAX package: of two equal heights the later position wins.
+JAX package: of two equal heights the later position wins. ``compact_hits``
+and ``hit_columns_from_flat`` are the host (NumPy) helpers that turn slot
+tables into hit table columns.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+KERNEL_VERSION = "peaks-v2"  # v2: neighbor-threshold condition
 DEFAULT_MAX_PEAKS = 32
 
 _NEG = -3.0e38  # sentinel below any float32 signal
@@ -273,3 +277,63 @@ def peak_heights_batch(
             h = torch.where((dpos >= s) & (dpos < e), d, 0.0).sum(dim=1)
         out[:, k] = torch.where(valid[:, k], h, 0.0)
     return out
+
+
+def compact_hits(
+    results: Dict[str, np.ndarray],
+    heights: np.ndarray,
+    timestamps: np.ndarray,
+    boards: np.ndarray,
+    channels: np.ndarray,
+    record_ids: np.ndarray,
+    dt_ns: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """Flatten (n, K) device results into flat hit arrays (host side).
+
+    Global timestamp = event timestamp + position * dt_ns * 1000 (ps).
+    """
+    valid = np.asarray(results["valid"])
+    rows, cols = np.nonzero(valid)
+    return hit_columns_from_flat(
+        rows=rows,
+        position=np.asarray(results["position"])[rows, cols],
+        heights=np.asarray(heights)[rows, cols],
+        left_ips=np.asarray(results["left_ips"])[rows, cols],
+        right_ips=np.asarray(results["right_ips"])[rows, cols],
+        timestamps=timestamps, boards=boards, channels=channels,
+        record_ids=record_ids, dt_ns=dt_ns,
+    )
+
+
+def hit_columns_from_flat(
+    rows: np.ndarray,
+    position: np.ndarray,
+    heights: np.ndarray,
+    left_ips: np.ndarray,
+    right_ips: np.ndarray,
+    timestamps: np.ndarray,
+    boards: np.ndarray,
+    channels: np.ndarray,
+    record_ids: np.ndarray,
+    dt_ns: np.ndarray,
+) -> Dict[str, np.ndarray]:
+    """HIT columns from already-compacted per-hit slot values.
+
+    ``rows`` maps each hit to its source waveform (row-major slot order —
+    exactly the order ``np.nonzero(valid)`` produces). Shared by the host
+    compaction above and the device-compacted fused-bundle transfer path.
+    """
+    pos = np.asarray(position).astype(np.int64)
+    dt = np.asarray(dt_ns, dtype=np.int64)[rows]
+    return {
+        "position": pos,
+        "height": np.asarray(heights).astype(np.float32),
+        "integral": np.zeros(len(rows), dtype=np.float32),
+        "edge_start": np.asarray(left_ips).astype(np.float32),
+        "edge_end": np.asarray(right_ips).astype(np.float32),
+        "dt": dt.astype(np.int32),
+        "timestamp": np.asarray(timestamps, dtype=np.int64)[rows] + pos * dt * 1000,
+        "board": np.asarray(boards, dtype=np.int16)[rows],
+        "channel": np.asarray(channels, dtype=np.int16)[rows],
+        "record_id": np.asarray(record_ids, dtype=np.int64)[rows],
+    }
