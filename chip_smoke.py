@@ -14,10 +14,16 @@ version on the card, and drives the port's two main paths:
   "hit_threshold"])`` over the five S1/S2-cone plugins on bench.py's waves,
   every member table against the port's own CPU Context, and the table
   lengths and S1/S2 counts at 8192 events against the JAX package's
-  (pinned by tests/test_torch_context_route.py).
+  (pinned by tests/test_torch_context_route.py);
+- slice 3: the same request with ``FilteredWaveformsPlugin`` registered,
+  route A (the defaults: SG, only ``hit`` reads ``filtered_waveforms``) and
+  route B (the Butterworth bandpass through the zero-phase kernel, every
+  member on ``filtered_waveforms``), each member table and the filtered
+  waves against the port's CPU Context, and the counts at 4096 events
+  against the JAX package's (pinned by tests/test_torch_filtered_route.py).
 
 Then it times the kernels alone and their plain versions (CUDA events) and
-the Context route's warm per-run wall time at 65,536 and 1,048,576 events.
+the Context routes' warm per-run wall time at 65,536 and 1,048,576 events.
 
 Each phase prints one line. The last two lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
@@ -49,6 +55,9 @@ ATOL, RTOL = 1e-3, 1e-4  # f32 outputs; ints, indices, counts, labels exact
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# the same units issuing a separate multiply and add (the IIR kernels are
+# built with --fmad=false, so no operation pairs into an FMA)
+F32_NONFMA_OPS_PER_S = F32_OPS_PER_S / 2
 
 # bench.make_batch(65536, 256, seed=0) through the JAX package's XLA chain
 # (full_chain_step) with bench.py's config; tests/test_torch_chain_scan.py
@@ -71,6 +80,50 @@ ROUTE_CONFIG = {
               "s2_width_range": (40.0, 10000.0)},
 }
 MEMBERS = ("basic_features", "hit", "hit_threshold", "waveform_width", "s1_s2")
+
+# slice 3: (plugin config, st_waveforms baseline) of the two routes through
+# filtered_waveforms (tests/test_torch_filtered_route.py documents both)
+_HIT = {"use_derivative": False, "height": 80.0, "prominence": 50.0, "width": 2}
+_S1S2 = ROUTE_CONFIG["s1_s2"]
+FILTER_ROUTES = {
+    # the defaults: SG (window 11, poly 2), only hit on filtered_waveforms
+    "A": ({"hit": _HIT, "s1_s2": _S1S2}, 1000.0),
+    # the Butterworth bandpass, every member on filtered_waveforms; the
+    # bandpass removes the DC level and hit subtracts the st baseline
+    "B": ({"filtered_waveforms": {"filter_type": "BW", "filter_order": 4,
+                                  "lowcut": 0.002, "highcut": 0.1, "fs": 0.5},
+           "basic_features": {"wave_source": "filtered_waveforms"},
+           "hit": _HIT,
+           "hit_threshold": {"wave_source": "filtered_waveforms"},
+           "waveform_width": {"use_filtered": True},
+           "s1_s2": _S1S2}, 0.0),
+}
+# members computed outside the fused program (the JAX package's plan)
+FILTER_STANDALONE = {"A": {"hit", "waveform_width", "s1_s2"}, "B": set()}
+N_FILTER_REF = 4096
+# the JAX routes on bench.make_batch(4096, 256, seed=0); route B filters with
+# the JAX package's Pallas kernel in interpret mode;
+# tests/test_torch_filtered_route.py recomputes these with JAX
+REF_FILTER_ROUTES = {
+    "A": {"basic_features": 4096, "hit": 4096, "hit_threshold": 7108,
+          "waveform_width": 4096, "s1_s2": 4096, "n_s1": 2048, "n_s2": 2048},
+    "B": {"basic_features": 4096, "hit": 4096, "hit_threshold": 7475,
+          "waveform_width": 4096, "s1_s2": 4096, "n_s1": 2048, "n_s2": 2048},
+}
+# (order, lowcut, highcut, fs) in GHz of the kernels' parity and timing cases
+FILTER_DESIGNS = {
+    "route_b": (4, 0.002, 0.1, 0.5),
+    "config3": (2, 0.1, 0.2, 0.5),  # scripts/benchmark_suite.py:154
+    "order3": (3, 0.01, 0.15, 0.5),
+}
+FILTER_RTOL = 1e-6  # K5/K6 vs plain: expected bit-equal (relative to max |ref|)
+SG_RTOL = 1e-5  # SG on the card vs the CPU (docs/PARITY.md:34)
+BW_WAVE_ATOL = 5e-4  # filtered waves, CUDA vs CPU Context (docs/PARITY.md:34)
+# route B's peak device memory for one 1,048,576 x 256 run, estimated before
+# the first timed run: the int16 st matrix 0.5 GB + the f32 filtered matrix
+# 1.0 + one channel group's filter temporaries 1.3 + the fused program's
+# signals and time-major copies 3.0 + slot tables 4.1 + their compaction 2.7
+ROUTE_B_PEAK_ESTIMATE_GB = 12.6
 
 
 def fail(msg: str) -> None:
@@ -124,12 +177,14 @@ def compare(ref: dict, out: dict, tag: str, mask=None, masked=()) -> float:
     return worst
 
 
-def compare_tables(ref, out, tag: str) -> float:
-    """Two Tables field by field (ints exact, f32 within tolerance)."""
+def compare_tables(ref, out, tag: str) -> tuple:
+    """Two Tables field by field (ints exact, f32 within tolerance).
+    Returns (largest f32 |diff|, "tag.field" where it is)."""
     check(ref.field_names == out.field_names,
           f"{tag}: fields {out.field_names} != {ref.field_names}")
-    return compare({f: torch.from_numpy(np.asarray(ref[f])) for f in ref.field_names},
-                   {f: torch.from_numpy(np.asarray(out[f])) for f in out.field_names}, tag)
+    return max((compare({f: torch.from_numpy(np.asarray(ref[f]))},
+                        {f: torch.from_numpy(np.asarray(out[f]))}, tag), f"{tag}.{f}")
+               for f in ref.field_names)
 
 
 def median_ms(fn, iters: int = 7, warmup: int = 2) -> float:
@@ -155,16 +210,68 @@ def nbytes(*tensors) -> int:
 def bound(n_bytes: float, n_ops: float) -> tuple:
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
     float32 operations over the f32 peak."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return bound_at(n_bytes, n_ops, F32_OPS_PER_S)
+
+
+def bound_at(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
+    """bound() with the operations at ``ops_per_s``."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
-def make_route_context(ctx_cls, plugins, storage_dir: str, device: str):
+def make_route_context(ctx_cls, plugins, storage_dir: str, device: str,
+                       config=ROUTE_CONFIG):
     ctx = ctx_cls(storage_dir=storage_dir,
                   config={"show_progress": False, "device": device})
     ctx.register(*(p() for p in plugins))
-    ctx.set_config(ROUTE_CONFIG)
+    ctx.set_config(config)
     return ctx
+
+
+def filter_err(ref: torch.Tensor, out: torch.Tensor, tag: str) -> float:
+    """Largest |out - ref| of a filter kernel against its plain version,
+    within FILTER_RTOL of the largest |ref|."""
+    check(out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape,
+          f"{tag}: {out.dtype}{tuple(out.shape)} != {ref.dtype}{tuple(ref.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{tag}: non-finite values")
+    err = float((out.double() - ref.double()).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= FILTER_RTOL * scale, f"{tag}: max |diff| {err:.3g} > {FILTER_RTOL} x {scale:.3g}")
+    return err
+
+
+def standalone_members(ctx) -> set:
+    return {m for m in MEMBERS if f"plugin.{m}.compute" in ctx.profiler.stats()}
+
+
+def route_phases(ctx) -> dict:
+    """The fused executor's and the filter plugin's profiler phases, ms."""
+    keep = ("fusion.single.", "filtered_waveforms.", "plugin.")
+    return {k: round(v["total_s"] * 1e3, 1) for k, v in ctx.profiler.stats().items()
+            if k.startswith(keep)}
+
+
+def profile_route(ctx, rid: str, tag: str, smi: str) -> None:
+    """One warm run under torch.profiler: device busy time, idle share and
+    the largest device items (not in the medians)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ctx.get_data(rid, ["s1_s2", "hit_threshold"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ctx.flush_saves()
+    # device-side events only (kernels, copies, sets): the aten ops above
+    # them repeat their time
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    dev_ms = sum(r[0] for r in rows)
+    print(f"route profile {tag} ({smi}): wall {wall_ms:.1f} ms under the "
+          f"profiler, device busy {dev_ms:.2f} ms, idle share "
+          f"{1 - dev_ms / wall_ms:.3f}; top device ops (ms, calls): "
+          f"{[(round(t, 3), c, k[:48]) for t, c, k in rows[:12]]}", flush=True)
 
 
 def main() -> None:
@@ -181,10 +288,13 @@ def main() -> None:
         full_chain_step,
     )
     from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
     from waveformanalysis_tpu_torch.ops import width_scan_cuda as wsc
     from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
     from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch
     from waveformanalysis_tpu_torch.plugins.builtin.basic_features import BasicFeaturesPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.filtering import FilteredWaveformsPlugin
     from waveformanalysis_tpu_torch.plugins.builtin.hit_finder import ThresholdHitPlugin
     from waveformanalysis_tpu_torch.plugins.builtin.peak_finding import HitFinderPlugin
     from waveformanalysis_tpu_torch.plugins.builtin.s1_s2_classifier import S1S2ClassifierPlugin
@@ -193,6 +303,7 @@ def main() -> None:
 
     route_plugins = (BasicFeaturesPlugin, HitFinderPlugin, ThresholdHitPlugin,
                      WaveformWidthPlugin, S1S2ClassifierPlugin)
+    filter_plugins = route_plugins + (FilteredWaveformsPlugin,)
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -205,7 +316,7 @@ def main() -> None:
 
     # ---- phase 2: build (one nvcc per source, concurrently) ---------------
     t0 = time.perf_counter()
-    built = build_all(["chain_scan", "peaks_scan", "hits_scan", "width_scan"])
+    built = build_all(["chain_scan", "peaks_scan", "hits_scan", "width_scan", "sosfilt"])
     for name, b in built.items():
         regs = "; ".join(
             f"{p['function'][-40:]}: {p.get('registers')} regs, "
@@ -224,7 +335,8 @@ def main() -> None:
     dense_np = (np.round(1000 + np.random.default_rng(2).normal(0, 40, (n, L)))
                 .astype(np.int16), ragged_np[1], np.full(n, 1000.0, np.float32),
                 np.full(n, 1, np.int8))
-    max_err = {"chain_scan": 0.0, "peaks_scan": 0.0, "hits_scan": 0.0, "width_scan": 0.0}
+    max_err = {"chain_scan": 0.0, "peaks_scan": 0.0, "hits_scan": 0.0, "width_scan": 0.0,
+               "sosfiltfilt": 0.0, "sosfilt": 0.0}
 
     chain_cases = [
         ("bench", bench_cfg, main_np),
@@ -329,10 +441,58 @@ def main() -> None:
               f"max |f32 diff| {err:.3g}", flush=True)
     del slots, sig_rag, sig_der, sig_edge
 
+    # K5 (zero-phase, one launch) and K6 (one direction, twice in the
+    # two-pass mode) against the plain version on the same card tensors
+    designs = {k: flt.design_butterworth_sos(*v) for k, v in FILTER_DESIGNS.items()}
+    x_main = w_main.float()
+    filter_cases = [
+        ("route_b_bench", designs["route_b"], x_main),
+        ("config3_ragged", designs["config3"], rw.float()),
+        ("order3_bench", designs["order3"], x_main),
+        ("config3_offset_15000", designs["config3"], x_main + 15000.0),
+        ("route_b_n_minus_7", designs["route_b"], x_main[: n - 7]),
+        ("order6_two_chunks", flt.design_butterworth_sos(6, 0.01, 0.2, 0.5), x_main),
+    ]
+    for tag, sos, x in filter_cases:
+        before = flc.sosfiltfilt_cuda.launches
+        out = flc.sosfiltfilt_cuda(x, sos)
+        torch.cuda.synchronize()
+        check(flc.sosfiltfilt_cuda.launches == before + 1, f"sosfiltfilt {tag}: kernel not launched")
+        err = filter_err(flt.sosfiltfilt_plain(x, sos), out, f"sosfiltfilt {tag}")
+        max_err["sosfiltfilt"] = max(max_err["sosfiltfilt"], err)
+        print(f"parity sosfiltfilt {tag}: ok, {x.shape[0]} waves, S = {sos.shape[0]}, "
+              f"padlen {flt.sosfiltfilt_padlen(sos)}, max |diff| {err:.3g}", flush=True)
+    sos = designs["route_b"]
+    b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
+    two = flc.sosfiltfilt_cuda(x_main, sos, fused=False)
+    torch.cuda.synchronize()
+    check(flc.sosfilt_cuda.launches == b6 + 2 and flc.sosfiltfilt_cuda.launches == b5,
+          "two-pass mode: K6 not launched twice")
+    fused = flc.sosfiltfilt_cuda(x_main, sos)
+    err = max(filter_err(fused, two, "sosfilt two-pass vs fused"),
+              filter_err(flt.sosfiltfilt_plain(x_main, sos), two, "sosfilt two-pass vs plain"))
+    max_err["sosfilt"] = err
+    print(f"parity sosfilt two_pass_route_b: ok, K6 launched twice, max |diff| against "
+          f"K5 and the plain version {err:.3g}", flush=True)
+    b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
+    short = x_main[:, :20]  # L = 20 <= padlen 27: passes through
+    out = flt.sosfiltfilt(short, sos)
+    check(torch.equal(out, short) and (flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches)
+          == (b5, b6), "pass-through of L <= padlen launched a kernel or changed the waves")
+    print("parity sosfiltfilt pass_through_L20: ok, no launch, waves unchanged", flush=True)
+    for window, poly in ((11, 2), (21, 3)):
+        a, b = flt.savgol(w_main, window, poly), flt.savgol(w_main.cpu(), window, poly)
+        rel = float(((a.cpu().double() - b.double()).abs() / b.double().abs()).max())
+        check(rel <= SG_RTOL, f"SG {window}/{poly}: card vs CPU relative {rel:.3g} > {SG_RTOL}")
+        print(f"parity savgol window {window} poly {poly}: card = CPU within rtol {SG_RTOL} "
+              f"(largest relative difference {rel:.3g})", flush=True)
+    del two, fused, out, short
+
     # ---- phase 4: main path of slice 1 (make_chain_scan) ------------------
     # each main path runs with every kernel's count set to 0 just before it
     kernels = {"chain_scan": csc.chain_scan_cuda, "peaks_scan": csc.find_peaks_scan,
-               "hits_scan": csc.threshold_hits_scan, "width_scan": wsc.width_crossings_scan}
+               "hits_scan": csc.threshold_hits_scan, "width_scan": wsc.width_crossings_scan,
+               "sosfiltfilt": flc.sosfiltfilt_cuda, "sosfilt": flc.sosfilt_cuda}
     batch = batch_from_numpy(*main_np, device=dev)
     step = csc.make_chain_scan(bench_cfg)
     for fn in kernels.values():
@@ -385,14 +545,14 @@ def main() -> None:
         cpu_tables = {m: ctx_cpu.get_data("r", m) for m in MEMBERS}
         ctx_cpu.flush_saves()
         t_cpu = time.perf_counter() - t_cpu
-        route_err = max(compare_tables(cpu_tables[m], gpu_tables[m], f"route/{m}")
-                        for m in MEMBERS)
+        route_err, where = max(compare_tables(cpu_tables[m], gpu_tables[m], m)
+                               for m in MEMBERS)
         lab = np.asarray(gpu_tables["s1_s2"]["label"])
         print(f"main path 2: Context get_data(['s1_s2', 'hit_threshold']) on {n}x{L}: "
               f"launches {launches}; tables "
               f"{ {m: len(t) for m, t in gpu_tables.items()} }, S1 {int(np.sum(lab == 1))}, "
               f"S2 {int(np.sum(lab == 2))}; every member table = the CPU Context's "
-              f"(max |f32 diff| {route_err:.3g}; CPU route {t_cpu:.1f} s)", flush=True)
+              f"(max |f32 diff| {route_err:.3g}, {where}; CPU route {t_cpu:.1f} s)", flush=True)
         del ctx, ctx_cpu, gpu_tables, cpu_tables
 
         ctx = make_route_context(Context, route_plugins, f"{tmp}/ref", "cuda")
@@ -406,6 +566,83 @@ def main() -> None:
         check(got == REF_ROUTE_8192, f"route at {N_ROUTE_REF} events: {got}, "
               f"JAX reference {REF_ROUTE_8192}")
         print(f"main path 2 at {N_ROUTE_REF}x{L}: {got} (= JAX reference)", flush=True)
+
+    # ---- phase 5b: main paths of slice 3 (routes A and B) ------------------
+    for route in ("A", "B"):
+        cfg, bl = FILTER_ROUTES[route]
+        st = st_waveforms_from_waves(main_np[0], baseline=bl)
+        n_groups = len(np.unique(st["channel"]))
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = make_route_context(Context, filter_plugins, f"{tmp}/cuda", "cuda", cfg)
+            ctx.inject_data("r", "st_waveforms", st)
+            for fn in kernels.values():
+                fn.launches = 0
+            ctx.get_data("r", ["s1_s2", "hit_threshold"])
+            torch.cuda.synchronize()
+            got = {name: fn.launches for name, fn in kernels.items()}
+            if route == "A":  # SG; standalone hit (K2), fused hit_threshold (K3),
+                # standalone waveform_width (width_from_peaks, no kernel)
+                want = {"sosfiltfilt": 0, "width_scan": 0, "sosfilt": 0}
+                check(got["peaks_scan"] >= 1 and got["hits_scan"] >= 1,
+                      f"route A: launches {got}")
+            else:  # one K5 launch per hardware channel, then the fused program
+                want = {"sosfiltfilt": n_groups, "sosfilt": 0}
+                check(all(got[k] >= 1 for k in ("peaks_scan", "hits_scan", "width_scan")),
+                      f"route B: launches {got}")
+                launches.update(sosfiltfilt=got["sosfiltfilt"], sosfilt=got["sosfilt"])
+            check(all(got[k] == v for k, v in want.items()),
+                  f"route {route}: launches {got}, expected {want}")
+            standalone = standalone_members(ctx)
+            check(standalone == FILTER_STANDALONE[route],
+                  f"route {route}: standalone members {standalone}, JAX plan "
+                  f"{FILTER_STANDALONE[route]}")
+            names = ("filtered_waveforms",) + MEMBERS
+            gpu_tables = {m: ctx.get_data("r", m) for m in names}
+            wave = gpu_tables["filtered_waveforms"]["wave"]
+            check(isinstance(wave, torch.Tensor) and wave.device == dev
+                  and wave.dtype == torch.float32, "filtered waves did not stay on the card")
+            ctx.flush_saves()
+
+            t_cpu = time.perf_counter()
+            ctx_cpu = make_route_context(Context, filter_plugins, f"{tmp}/cpu", "cpu", cfg)
+            ctx_cpu.inject_data("r", "st_waveforms", st)
+            ctx_cpu.get_data("r", ["s1_s2", "hit_threshold"])
+            cpu_tables = {m: ctx_cpu.get_data("r", m) for m in names}
+            ctx_cpu.flush_saves()
+            t_cpu = time.perf_counter() - t_cpu
+            a, b = cpu_tables["filtered_waveforms"]["wave"], wave.cpu()
+            wave_err = float((a.double() - b.double()).abs().max())
+            if route == "A":
+                ok = bool(torch.isclose(b, a, rtol=SG_RTOL, atol=0).all())
+            else:
+                ok = wave_err <= BW_WAVE_ATOL
+            check(ok, f"route {route}: filtered waves differ from the CPU Context's by {wave_err:.3g}")
+            route_err, where = max(compare_tables(
+                cpu_tables[m].drop("wave") if m == names[0] else cpu_tables[m],
+                gpu_tables[m].drop("wave") if m == names[0] else gpu_tables[m],
+                f"route {route}/{m}") for m in names)
+            lab = np.asarray(gpu_tables["s1_s2"]["label"])
+            print(f"main path 3{route.lower()}: route {route} get_data(['s1_s2', 'hit_threshold']) "
+                  f"on {n}x{L}: launches {got}; standalone {sorted(standalone)}; tables "
+                  f"{ {m: len(gpu_tables[m]) for m in MEMBERS} }, S1 {int(np.sum(lab == 1))}, "
+                  f"S2 {int(np.sum(lab == 2))}; filtered waves = the CPU Context's (max "
+                  f"|diff| {wave_err:.3g}), every member table = the CPU Context's (max "
+                  f"|f32 diff| {route_err:.3g}, {where}; CPU route {t_cpu:.1f} s)", flush=True)
+            del ctx, ctx_cpu, gpu_tables, cpu_tables, wave, a, b
+
+            ctx = make_route_context(Context, filter_plugins, f"{tmp}/ref", "cuda", cfg)
+            ctx.inject_data("r", "st_waveforms", st_waveforms_from_waves(
+                make_batch(N_FILTER_REF, L, seed=0), baseline=bl))
+            ctx.get_data("r", ["s1_s2", "hit_threshold"])
+            got = {m: len(ctx.get_data("r", m)) for m in MEMBERS}
+            lab = np.asarray(ctx.get_data("r", "s1_s2")["label"])
+            got.update(n_s1=int(np.sum(lab == 1)), n_s2=int(np.sum(lab == 2)))
+            ctx.flush_saves()
+            check(got == REF_FILTER_ROUTES[route], f"route {route} at {N_FILTER_REF} events: "
+                  f"{got}, JAX reference {REF_FILTER_ROUTES[route]}")
+            print(f"main path 3{route.lower()} at {N_FILTER_REF}x{L}: {got} (= JAX reference)",
+                  flush=True)
+            del ctx
 
     # ---- phase 6: kernel times ---------------------------------------------
     # kernels alone on pre-transposed inputs (several copies in turn, more
@@ -532,6 +769,68 @@ def main() -> None:
               f"{t_p4:.3f} ms", flush=True)
         del w, sig, w_t, outs4, pos
         torch.cuda.empty_cache()
+
+    # K5 / K6 alone on pre-transposed, mean-removed inputs (two copies in
+    # turn, each larger than L2), then their wrappers and plain versions on
+    # the event-major waves; route B's design and config 3's
+    lib_flt = flc._library()
+    for size in (N_EVENTS, N_LARGE):
+        x = w_main.repeat(size // n, 1).float()
+        for dname in ("route_b", "config3"):
+            sos = designs[dname]
+            S, padlen = sos.shape[0], flt.sosfiltfilt_padlen(sos)
+            Lp = L + 2 * padlen
+            coef = flc.coefficient_table(sos, dev)
+            mean, _ = flt.condition(x, sos)
+            xc = x - mean
+            xc_t = [(xc + k).t().contiguous() for k in range(2)]
+            out_t = torch.empty((L, size), device=dev)
+            ends = torch.empty((2 * padlen, size), device=dev)
+            prm5 = flc._SosParams(n=size, L=L, S=S, padlen=padlen)
+
+            def k5(k):
+                err = lib_flt.wfa_sosfiltfilt(xc_t[k % 2].data_ptr(), coef.data_ptr(),
+                                              out_t.data_ptr(), ends.data_ptr(),
+                                              ctypes.byref(prm5), stream)
+                check(err == 0, f"sosfiltfilt kernel launch failed: cudaError {err}")
+
+            t_k5 = median_ms(k5)
+            t_w5 = median_ms(lambda k: flc.sosfiltfilt_cuda(x + k, sos))
+            t_p5 = median_ms(lambda k: flt.sosfiltfilt_plain(x + k, sos), iters=3, warmup=1)
+            del xc_t, out_t, ends
+            ext_t = [flt.reflect(xc + k, padlen).t().contiguous() for k in range(2)]
+            zi = flt._zi_times(sos, ext_t[0][0])
+            y_t = torch.empty((Lp, size), device=dev)
+            prm6 = flc._SosParams(n=size, L=Lp, S=S, padlen=0)
+
+            def k6(k):
+                err = lib_flt.wfa_sosfilt(ext_t[k % 2].data_ptr(), zi.data_ptr(), coef.data_ptr(),
+                                          y_t.data_ptr(), ctypes.byref(prm6), stream)
+                check(err == 0, f"sosfilt kernel launch failed: cudaError {err}")
+
+            t_k6 = median_ms(k6)
+            t_w6 = median_ms(lambda k: flc.sosfilt_cuda(ext_t[k % 2], sos, zi))
+            t_p6 = median_ms(lambda k: flt.sosfilt_plain(ext_t[k % 2], sos, zi),
+                             iters=3, warmup=1)
+            # bytes: each input read once, each output written once; work:
+            # 9 float32 operations per section and sample and direction, at
+            # the non-FMA rate (the kernels are built with --fmad=false)
+            b5 = bound_at(2 * size * L * 4, 2 * Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
+            b6 = bound_at(nbytes(ext_t[0], zi, y_t), Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
+            if dname == "route_b":  # the kernels' records: route B's design
+                times[("sosfiltfilt", size)], bounds[("sosfiltfilt", size)] = (t_k5, t_p5), b5
+                times[("sosfilt", size)], bounds[("sosfilt", size)] = (t_k6, t_p6), b6
+            print(f"times sosfiltfilt {size}x{L} {dname} (S={S}, padlen {padlen}) ({smi}), "
+                  f"median ms: kernel alone {t_k5:.3f} ({size / t_k5 * 1e3:.0f} wf/s), wrapper "
+                  f"(conditioning + transposes) {t_w5:.3f}, plain sosfiltfilt_plain "
+                  f"{t_p5:.3f}; bound {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / t_k5:.1f} %)",
+                  flush=True)
+            print(f"times sosfilt {size}x{Lp} {dname} ({smi}), median ms: kernel alone "
+                  f"{t_k6:.3f}, wrapper {t_w6:.3f}, plain sosfilt_plain {t_p6:.3f}; bound "
+                  f"{b6[0]:.4f} ms by {b6[1]} ({100 * b6[0] / t_k6:.1f} %)", flush=True)
+            del ext_t, zi, y_t, xc, mean
+        del x
+        torch.cuda.empty_cache()
     for (name, size), (ms, _) in times.items():
         b_ms, b_by = bounds[(name, size)]
         print(f"bound {name} {size}x{L}: {b_ms:.4f} ms by {b_by}; kernel at "
@@ -572,26 +871,61 @@ def main() -> None:
 
         # one more warm run at 65,536 under torch.profiler: device time by
         # kernel and the device's idle share of the call (not in the medians)
-        from torch.profiler import ProfilerActivity, profile
-
         ctx.inject_data("prof", "st_waveforms",
                         st_waveforms_from_waves(make_batch(N_EVENTS, L, seed=seed + 1)))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            ctx.get_data("prof", ["s1_s2", "hit_threshold"])
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        ctx.flush_saves()
-        # device-side events only (kernels, copies, sets): the aten ops
-        # above them repeat their time
-        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-                for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
-        rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-        dev_ms = sum(r[0] for r in rows)
-        print(f"route profile {N_EVENTS}x{L} ({smi}): wall {wall_ms:.1f} ms under the "
-              f"profiler, device busy {dev_ms:.2f} ms, idle share "
-              f"{1 - dev_ms / wall_ms:.3f}; top device ops (ms, calls): "
-              f"{[(round(t, 3), c, k[:48]) for t, c, k in rows[:10]]}", flush=True)
+        profile_route(ctx, "prof", f"{N_EVENTS}x{L}", smi)
+        del ctx
+
+    # routes A and B the same way; each run's waves are one batch per size
+    # shifted by the run's index (fresh input without a new batch per run).
+    # The Context's memory cache keeps every run's tables, the filtered
+    # waves on the card among them, so the memory allocated after each run
+    # grows by one filtered matrix; the peak is per run.
+    for route in ("A", "B"):
+        cfg, bl = FILTER_ROUTES[route]
+        with tempfile.TemporaryDirectory() as tmp:
+            ctx = make_route_context(Context, filter_plugins, tmp, "cuda", cfg)
+            for size in (N_EVENTS, N_LARGE):
+                base = make_batch(size, L, seed=300 + size % 97)
+                walls, flushes, phases, peaks, held = [], [], [], [], []
+                for i in range(4):
+                    rid = f"{route}{size}_{i}"
+                    ctx.inject_data(rid, "st_waveforms",
+                                    st_waveforms_from_waves(base + np.int16(i), baseline=bl))
+                    ctx.profiler.reset()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    before = torch.cuda.memory_allocated(dev)
+                    t0 = time.perf_counter()
+                    res = ctx.get_data(rid, ["s1_s2", "hit_threshold"])
+                    walls.append(time.perf_counter() - t0)
+                    check(len(res["s1_s2"]) > 0, f"route {route} {rid}: no s1_s2 rows")
+                    peaks.append((torch.cuda.max_memory_allocated(dev) / 1e9,
+                                  (torch.cuda.max_memory_allocated(dev) - before) / 1e9))
+                    phases.append(route_phases(ctx))
+                    t0 = time.perf_counter()
+                    ctx.flush_saves()
+                    flushes.append(time.perf_counter() - t0)
+                    held.append(torch.cuda.memory_allocated(dev) / 1e9)
+                med = statistics.median(walls[1:])
+                med_ph = {k: round(statistics.median(p.get(k, 0.0) for p in phases[1:]), 1)
+                          for k in phases[1]}
+                est = (f" (estimate {ROUTE_B_PEAK_ESTIMATE_GB} GB)"
+                       if route == "B" and size == N_LARGE else "")
+                print(f"route {route} {size}x{L} ({smi}): cold {walls[0]:.3f} s; warm median "
+                      f"of 3 {med * 1e3:.1f} ms = {size / med:.0f} waveforms/s (runs "
+                      f"{[round(x * 1e3, 1) for x in walls[1:]]} ms); phases ms {med_ph}; "
+                      f"flush_saves median {statistics.median(flushes[1:]) * 1e3:.1f} ms; "
+                      f"peak device memory per run (max_memory_allocated, and above the "
+                      f"run's start) {[(round(a, 3), round(b, 3)) for a, b in peaks]} GB{est}; "
+                      f"allocated after each run "
+                      f"{[round(x, 3) for x in held]} GB", flush=True)
+                del base
+            if route == "B":
+                ctx.inject_data("prof", "st_waveforms", st_waveforms_from_waves(
+                    make_batch(N_EVENTS, L, seed=399), baseline=bl))
+                profile_route(ctx, "prof", f"B {N_EVENTS}x{L}", smi)
+            del ctx
+        torch.cuda.empty_cache()
 
     # ---- phase 8: guard and records ----------------------------------------
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "waveformanalysis_tpu")
@@ -603,7 +937,10 @@ def main() -> None:
         "peaks_scan": "waveformanalysis_tpu/ops/chain_scan_pallas.py:920",
         "hits_scan": "waveformanalysis_tpu/ops/chain_scan_pallas.py:1238",
         "width_scan": "waveformanalysis_tpu/ops/width_scan_pallas.py:59",
+        "sosfiltfilt": "waveformanalysis_tpu/ops/filter_pallas.py:125",
+        "sosfilt": "waveformanalysis_tpu/ops/filter_pallas.py:50",
     }
+    sources = {"sosfiltfilt": "sosfilt", "sosfilt": "sosfilt"}
     records = []
     for name in replaces:
         ms, plain_ms = times[(name, N_EVENTS)]
@@ -611,7 +948,7 @@ def main() -> None:
         records.append({
             "name": name,
             "route": "cuda",
-            "source": f"waveformanalysis_tpu_torch/csrc/{name}.cu",
+            "source": f"waveformanalysis_tpu_torch/csrc/{sources.get(name, name)}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
             "max_abs_err": max_err[name],

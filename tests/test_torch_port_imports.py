@@ -21,6 +21,9 @@ ROOT = Path(__file__).resolve().parents[1]
 KEY_MODULES = (
     "waveformanalysis_tpu_torch.ops.chain_scan_cuda",
     "waveformanalysis_tpu_torch.ops.width_scan_cuda",
+    "waveformanalysis_tpu_torch.ops.filtering",
+    "waveformanalysis_tpu_torch.ops.filter_cuda",
+    "waveformanalysis_tpu_torch.plugins.builtin.filtering",
     "waveformanalysis_tpu_torch.context.fusion",
     "waveformanalysis_tpu_torch.context.context",
     "waveformanalysis_tpu_torch.plugins.builtin.waveform_width",
@@ -80,6 +83,33 @@ def test_cpu_call_never_touches_loader(monkeypatch):
     assert out["label"].dtype == torch.int8 and out["label"].shape == (8,)
 
 
+def test_cpu_filter_calls_never_touch_loader(monkeypatch):
+    """The filter wrappers, the tensor entries and the array entries on the
+    CPU run the plain versions: no build, no launch."""
+    from waveformanalysis_tpu_torch.kernels import _build
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
+
+    def refuse(*args):
+        raise AssertionError("the loader was called for CPU tensors")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(flc, "_library", refuse)
+    before = (flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches)
+    sos = flt.design_butterworth_sos(4, 0.002, 0.1, 0.5)
+    x = torch.as_tensor(np.random.default_rng(0).normal(1000, 30, (6, 96)), dtype=torch.float32)
+    outs = [flc.sosfiltfilt_cuda(x, sos), flc.sosfiltfilt_cuda(x, sos, fused=False),
+            flt.sosfiltfilt(x, sos), flt.apply_filter(x, "BW", bw_sos=sos)]
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+    np.testing.assert_array_equal(flt.sosfiltfilt_device(x.numpy(), sos, device="cpu"),
+                                  outs[0].numpy())
+    zi = torch.zeros((2 * sos.shape[0], 6))
+    assert flc.sosfilt_cuda(x.t().contiguous(), sos, zi).shape == (96, 6)
+    assert flt.savgol(x, 11, 2).shape == x.shape
+    assert (flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches) == before
+
+
 def test_cuda_wrapper_rejects_bad_inputs_before_building(monkeypatch):
     """Dtype/shape checks raise before any build; mixed devices raise."""
     from waveformanalysis_tpu_torch.models.full_chain import ChainConfig
@@ -130,9 +160,20 @@ def test_default_device_is_cuda(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.ops import filtering as flt
 
+    waves = np.full((4, 64), 1000.0, np.float32)
+    sos = flt.design_butterworth_sos(2, 0.1, 0.2, 0.5)
+    view = type("View", (), {"records": {"wave_offset": np.array([0]),
+                                         "event_length": np.array([64])},
+                             "wave_pool": np.zeros(64, np.int16)})()
     for call in (resolve_device, lambda: resolve_device(None),
-                 lambda: example_chain_batch(4, 128), Context):
+                 lambda: example_chain_batch(4, 128), Context,
+                 lambda: flt.sosfiltfilt_device(waves, sos),
+                 lambda: flt.sosfiltfilt_device(waves[:, :8], sos),  # even a pass-through
+                 lambda: flt.savgol_device(waves, 11, 2),
+                 lambda: flt.apply_filter(waves, "SG", sg_window_size=11, sg_poly_order=2),
+                 lambda: flt.filter_pool(view, "savgol")):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
 
@@ -221,3 +262,40 @@ def test_scan_kernels_match_plain_on_card():
     bl = w.float()[:, :50].sum(dim=1) / 50
     args = (w, bl, peaks["position"], 0.1, 0.9, 0.9, 0.1)
     same(wsc.width_crossings_plain(*args), wsc.width_crossings_scan(*args))
+
+
+@pytest.mark.cuda
+def test_filter_kernels_match_plain_on_card():
+    """K5 (one launch) and K6 (two launches in the two-pass mode) against
+    the plain version on CUDA tensors, for 1 to 9 sections (more than four
+    run the cascade in chunks); expected bit-equal, held to 1e-6 of the
+    largest |value|. A short wave passes through without a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
+
+    rng = np.random.default_rng(6)
+    n, L = 1000, 200  # a ragged tail: n is not a multiple of the block
+    t = np.arange(L)
+    waves = np.round(1000 + rng.normal(0, 20, (n, L))
+                     + 300 * np.exp(-((t - 90) ** 2) / 40.0)).astype(np.float32)
+    x = torch.as_tensor(waves, device="cuda")
+    for order, lo, hi in ((1, 0.01, 0.2), (2, 0.1, 0.2), (3, 0.01, 0.15), (4, 0.002, 0.1),
+                          (5, 0.01, 0.2), (9, 0.02, 0.2)):
+        sos = flt.design_butterworth_sos(order, lo, hi, 0.5)
+        ref = flt.sosfiltfilt_plain(x, sos)
+        b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
+        fused = flc.sosfiltfilt_cuda(x, sos)
+        two = flc.sosfiltfilt_cuda(x, sos, fused=False)
+        torch.cuda.synchronize()
+        assert (flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches) == (b5 + 1, b6 + 2)
+        scale = float(ref.abs().max())
+        for out in (fused, two):
+            assert out.dtype == torch.float32 and out.shape == (n, L)
+            assert float((out - ref).abs().max()) <= 1e-6 * scale, order
+    short = x[:, :20]
+    b5 = flc.sosfiltfilt_cuda.launches
+    assert torch.equal(flt.sosfiltfilt(short, flt.design_butterworth_sos(4, 0.002, 0.1, 0.5)),
+                       short)
+    assert flc.sosfiltfilt_cuda.launches == b5

@@ -228,12 +228,14 @@ class WaveformWidthPlugin(Plugin):
         rows = rows[matched]
         hit_sel = np.flatnonzero(matched)
 
-        waves = np.asarray(data["wave"])[rows]
         peak_pos = np.asarray(hits["position"], dtype=np.int64)[hit_sel]
 
+        # gather on the device: a device-resident wave column
+        # (filtered_waveforms on a CUDA Context) never crosses to the host
         dev = context.device
+        waves = to_device(data["wave"], dev)[to_device(rows, dev)]
         out = WD.width_from_peaks(
-            to_device(waves.astype(np.float32), dev),
+            waves.to(torch.float32),
             to_device(peak_pos.astype(np.int32), dev),
             rise_low=rise_low, rise_high=rise_high,
             fall_high=fall_high, fall_low=fall_low,
