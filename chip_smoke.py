@@ -5,7 +5,7 @@
 
 Builds the hand-written CUDA kernels from the sources in this checkout (one
 nvcc per source, all at once), holds each against its plain PyTorch
-version on the card, and drives the port's two main paths:
+version on the card, and drives the port's main paths:
 
 - slice 1: ``make_chain_scan`` on bench.py's workload (65536 x 256), its
   S1/S2 and overflow counts against the JAX package's XLA chain (pinned by
@@ -20,7 +20,10 @@ version on the card, and drives the port's two main paths:
   route B (the Butterworth bandpass through the zero-phase kernel, every
   member on ``filtered_waveforms``), each member table and the filtered
   waves against the port's CPU Context, and the counts at 4096 events
-  against the JAX package's (pinned by tests/test_torch_filtered_route.py).
+  against the JAX package's (pinned by tests/test_torch_filtered_route.py);
+- slice 4: the facade's ``make_chain_tile`` (the tile chain, one warp per
+  event on the event-major rows) on bench.py's workload, with slice 1's
+  JAX counts, then the fused-chain demo (plain, tile and scan chains agree).
 
 Then it times the kernels alone and their plain versions (CUDA events) and
 the Context routes' warm per-run wall time at 65,536 and 1,048,576 events.
@@ -219,6 +222,25 @@ def bound_at(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def check_chain_counts(out: dict, dev, n: int, tag: str) -> str:
+    """A chain step's outputs on the device, of shape (n,), finite, with
+    bench.py's JAX counts (S1 on even, S2 on odd events, overflows)."""
+    for k, v in out.items():
+        check(v.device == dev, f"{tag}/{k} left the device")
+        if v.dim():
+            check(tuple(v.shape) == (n,), f"{tag}/{k}: shape {tuple(v.shape)}")
+        if v.dtype.is_floating_point:
+            check(bool(torch.isfinite(v).all()), f"{tag}/{k}: non-finite values")
+    label = out["label"].cpu().numpy()
+    got = (int(np.sum(label[0::2] == 1)), int(np.sum(label[1::2] == 2)),
+           int(out["n_peak_overflow"]), int(out["n_hit_overflow"]))
+    ref = (REF_S1_EVEN, REF_S2_ODD, REF_PEAK_OVERFLOW, REF_HIT_OVERFLOW)
+    check(got == ref, f"{tag} counts (S1 even, S2 odd, peak ovf, hit ovf) = {got}, "
+          f"JAX reference {ref}")
+    return (f"S1 {got[0]}/{n // 2} even, S2 {got[1]}/{n // 2} odd, peak overflow {got[2]}, "
+            f"hit overflow {got[3]}")
+
+
 def make_route_context(ctx_cls, plugins, storage_dir: str, device: str,
                        config=ROUTE_CONFIG):
     ctx = ctx_cls(storage_dir=storage_dir,
@@ -287,7 +309,10 @@ def main() -> None:
         batch_from_numpy,
         full_chain_step,
     )
+    import waveformanalysis_tpu_torch as wa
+    from waveformanalysis_tpu_torch.examples import fused_chain_demo
     from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
     from waveformanalysis_tpu_torch.ops import filter_cuda as flc
     from waveformanalysis_tpu_torch.ops import filtering as flt
     from waveformanalysis_tpu_torch.ops import width_scan_cuda as wsc
@@ -316,7 +341,8 @@ def main() -> None:
 
     # ---- phase 2: build (one nvcc per source, concurrently) ---------------
     t0 = time.perf_counter()
-    built = build_all(["chain_scan", "peaks_scan", "hits_scan", "width_scan", "sosfilt"])
+    built = build_all(["chain_scan", "chain_tile", "peaks_scan", "hits_scan", "width_scan",
+                       "sosfilt"])
     for name, b in built.items():
         regs = "; ".join(
             f"{p['function'][-40:]}: {p.get('registers')} regs, "
@@ -335,8 +361,11 @@ def main() -> None:
     dense_np = (np.round(1000 + np.random.default_rng(2).normal(0, 40, (n, L)))
                 .astype(np.int16), ragged_np[1], np.full(n, 1000.0, np.float32),
                 np.full(n, 1, np.int8))
-    max_err = {"chain_scan": 0.0, "peaks_scan": 0.0, "hits_scan": 0.0, "width_scan": 0.0,
-               "sosfiltfilt": 0.0, "sosfilt": 0.0}
+    max_err = {"chain_scan": 0.0, "chain_tile": 0.0, "peaks_scan": 0.0, "hits_scan": 0.0,
+               "width_scan": 0.0, "sosfiltfilt": 0.0, "sosfilt": 0.0}
+    # L = 250: rows that are not 16-byte aligned and a ragged last block of
+    # the tile kernel (n = 65,529 is no multiple of its 8 events per block)
+    ragged250_np = ragged_batch(n - 7, 250, seed=4)
 
     chain_cases = [
         ("bench", bench_cfg, main_np),
@@ -350,19 +379,34 @@ def main() -> None:
                                         peak_prominence=2.0, peak_width=0.5,
                                         peak_distance=1, max_peaks=16, max_hits=16,
                                         hit_threshold=5.0), dense_np),
+        ("dense_noise_k32_d2", ChainConfig(use_derivative=False, peak_height=10.0,
+                                           peak_prominence=2.0, peak_width=0.5,
+                                           peak_distance=2, max_peaks=32, max_hits=32,
+                                           hit_threshold=5.0), dense_np),
+        ("ragged_n_minus_7_L250", ChainConfig(use_derivative=False, peak_height=60.0,
+                                              peak_prominence=30.0, peak_width=1.5),
+         ragged250_np),
     ]
     for tag, cfg, arrays in chain_cases:
         batch = batch_from_numpy(*arrays, device=dev)
-        before = csc.chain_scan_cuda.launches
-        out = csc.chain_scan_cuda(*batch, cfg)
-        torch.cuda.synchronize()
-        check(csc.chain_scan_cuda.launches == before + 1, f"{tag}: kernel not launched")
-        err = compare(full_chain_step(*batch, cfg), out, f"chain {tag}")
-        max_err["chain_scan"] = max(max_err["chain_scan"], err)
-        print(f"parity chain_scan {tag}: ok, max |f32 diff| {err:.3g}, "
-              f"peak overflow {int(out['n_peak_overflow'])}, "
-              f"labels {np.bincount(out['label'].cpu().numpy(), minlength=3).tolist()}",
-              flush=True)
+        ref = full_chain_step(*batch, cfg)
+        outs = {}
+        for name, fn in (("chain_scan", csc.chain_scan_cuda), ("chain_tile", ctc.chain_tile_cuda)):
+            before = fn.launches
+            outs[name] = fn(*batch, cfg)
+            torch.cuda.synchronize()
+            check(fn.launches == before + 1, f"{name} {tag}: kernel not launched")
+            err = compare(ref, outs[name], f"{name} {tag}")
+            max_err[name] = max(max_err[name], err)
+            print(f"parity {name} {tag} ({batch[0].shape[0]}x{batch[0].shape[1]}): ok, max "
+                  f"|f32 diff| {err:.3g}, peak overflow {int(outs[name]['n_peak_overflow'])}, "
+                  f"labels {np.bincount(outs[name]['label'].cpu().numpy(), minlength=3).tolist()}",
+                  flush=True)
+        ints = [k for k, v in ref.items() if not v.dtype.is_floating_point]
+        check(all(torch.equal(outs["chain_tile"][k], outs["chain_scan"][k]) for k in ints),
+              f"chain_tile {tag}: integer outputs differ from chain_scan's")
+        print(f"parity chain_tile {tag}: integer outputs {ints} = chain_scan's", flush=True)
+    del outs, ref, ragged250_np
 
     # detection signals as the hit / hit_threshold device stages form them
     w_main = torch.from_numpy(main_np[0]).to(dev)
@@ -490,7 +534,8 @@ def main() -> None:
 
     # ---- phase 4: main path of slice 1 (make_chain_scan) ------------------
     # each main path runs with every kernel's count set to 0 just before it
-    kernels = {"chain_scan": csc.chain_scan_cuda, "peaks_scan": csc.find_peaks_scan,
+    kernels = {"chain_scan": csc.chain_scan_cuda, "chain_tile": ctc.chain_tile_cuda,
+               "peaks_scan": csc.find_peaks_scan,
                "hits_scan": csc.threshold_hits_scan, "width_scan": wsc.width_crossings_scan,
                "sosfiltfilt": flc.sosfiltfilt_cuda, "sosfilt": flc.sosfilt_cuda}
     batch = batch_from_numpy(*main_np, device=dev)
@@ -501,24 +546,29 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = {"chain_scan": csc.chain_scan_cuda.launches}
     check(launches["chain_scan"] >= 1, "main path did not launch the chain kernel")
-    label = out["label"].cpu().numpy()
-    for k, v in out.items():
-        check(v.device == dev, f"main/{k} left the device")
-        if v.dim():
-            check(tuple(v.shape) == (n,), f"main/{k}: shape {tuple(v.shape)}")
-        if v.dtype.is_floating_point:
-            check(bool(torch.isfinite(v).all()), f"main/{k}: non-finite values")
-    s1_even = int(np.sum(label[0::2] == 1))
-    s2_odd = int(np.sum(label[1::2] == 2))
-    po, ho = int(out["n_peak_overflow"]), int(out["n_hit_overflow"])
-    check((s1_even, s2_odd, po, ho)
-          == (REF_S1_EVEN, REF_S2_ODD, REF_PEAK_OVERFLOW, REF_HIT_OVERFLOW),
-          f"main path counts (S1 even, S2 odd, peak ovf, hit ovf) = "
-          f"{(s1_even, s2_odd, po, ho)}, JAX reference "
-          f"{(REF_S1_EVEN, REF_S2_ODD, REF_PEAK_OVERFLOW, REF_HIT_OVERFLOW)}")
+    counts = check_chain_counts(out, dev, n, "main path 1")
     print(f"main path 1: make_chain_scan on {n}x{L}: {launches['chain_scan']} kernel "
-          f"launch(es); S1 {s1_even}/{n // 2} even, S2 {s2_odd}/{n // 2} odd, "
-          f"peak overflow {po}, hit overflow {ho} (= JAX reference)", flush=True)
+          f"launch(es); {counts} (= JAX reference)", flush=True)
+
+    # ---- phase 4c: main path of slice 4 (the facade's make_chain_tile) ----
+    tile_step = wa.make_chain_tile(bench_cfg)
+    for fn in kernels.values():
+        fn.launches = 0
+    out = tile_step(*batch)
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in kernels.items()}
+    launches["chain_tile"] = got["chain_tile"]
+    check(got["chain_tile"] >= 1 and all(v == 0 for k, v in got.items() if k != "chain_tile"),
+          f"main path 4: launches {got}, expected chain_tile only")
+    counts = check_chain_counts(out, dev, n, "main path 4")
+    print(f"main path 4: wa.make_chain_tile on {n}x{L}: launches {got}; {counts} "
+          f"(= JAX reference)", flush=True)
+    demo = fused_chain_demo.main(device="cuda", n_events=n)
+    check(all(demo["agree"].values()), f"fused-chain demo: implementations disagree {demo['agree']}")
+    print(f"main path 4 demo at {n} events: tile and scan chains = the plain chain on "
+          f"{list(fused_chain_demo.AGREE_KEYS)}; accuracy "
+          f"{ {k: v['accuracy'] for k, v in demo['results'].items()} }", flush=True)
+    del out, demo
 
     # ---- phase 5: main path of slice 2 (the Context route) ----------------
     route_kernels = ("peaks_scan", "hits_scan", "width_scan")
@@ -549,7 +599,7 @@ def main() -> None:
                                for m in MEMBERS)
         lab = np.asarray(gpu_tables["s1_s2"]["label"])
         print(f"main path 2: Context get_data(['s1_s2', 'hit_threshold']) on {n}x{L}: "
-              f"launches {launches}; tables "
+              f"launches { {k: launches[k] for k in route_kernels} }; tables "
               f"{ {m: len(t) for m, t in gpu_tables.items()} }, S1 {int(np.sum(lab == 1))}, "
               f"S2 {int(np.sum(lab == 2))}; every member table = the CPU Context's "
               f"(max |f32 diff| {route_err:.3g}, {where}; CPU route {t_cpu:.1f} s)", flush=True)
@@ -652,6 +702,12 @@ def main() -> None:
     times, bounds = {}, {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib_chain = csc._library()
+    lib_tile = ctc._library()
+    tile_rows = ctc.rows_per_block(L, ctc.DEFAULT_TILE_ROWS)
+    tile_regs = "; ".join(f"KT={p['function'].split('ILi')[1].split('E')[0]}: "
+                          f"{p.get('registers')} regs, {p.get('spill_stores')}/"
+                          f"{p.get('spill_loads')} B spill st/ld"
+                          for p in built["chain_tile"].ptxas)
     lib_peaks = csc._peaks_library()
     lib_hits = csc._hits_library()
     lib_width = wsc._library()
@@ -668,10 +724,15 @@ def main() -> None:
         sig_t = [(sig + k).t().contiguous() for k in range(n_copies)]
         w_t = [(w + k).t().contiguous() for k in range(n_copies)]
 
-        # K1: plain, step, kernel alone, step, plain
-        outs1 = {name: torch.empty(size, dtype=dt, device=dev) for name, dt in csc._OUTS}
+        # K1 and K7 in turns: plain, steps, kernels alone, kernels alone,
+        # steps, plain. K1 alone reads time-major copies, K7 alone
+        # event-major ones; each step includes its wrapper (K1's the
+        # transposing copy)
+        outs1 = csc.chain_outputs(size, dev)
         ptrs1 = csc._Outs(*(outs1[name].data_ptr() for name, _ in csc._OUTS))
         prm1 = csc._params(bench_cfg, size, L)
+        w_e = [w + k for k in range(n_copies)]
+        vec = int(all(x.data_ptr() % 16 == 0 for x in w_e))
 
         def k1(k):
             err = lib_chain.wfa_chain_scan(w_t[k % n_copies].data_ptr(), el.data_ptr(),
@@ -679,22 +740,45 @@ def main() -> None:
                                            ctypes.byref(prm1), stream)
             check(err == 0, f"chain kernel launch failed: cudaError {err}")
 
+        def k7(k):
+            err = lib_tile.wfa_chain_tile(w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                          bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
+                                          ctypes.byref(prm1), tile_rows, vec, stream)
+            check(err == 0, f"tile chain kernel launch failed: cudaError {err}")
+
         t_plain = median_ms(lambda k: full_chain_step(w + k, el, bl + k, pol, bench_cfg))
         t_step = median_ms(lambda k: step(w + k, el, bl + k, pol))
+        t_tstep = median_ms(lambda k: tile_step(w + k, el, bl + k, pol))
         t_k1 = median_ms(k1)
+        t_k7 = median_ms(k7)
+        t_k7b = median_ms(k7)
+        t_k1b = median_ms(k1)
+        t_tstep2 = median_ms(lambda k: tile_step(w + k, el, bl + k, pol))
         t_step2 = median_ms(lambda k: step(w + k, el, bl + k, pol))
         t_plain2 = median_ms(lambda k: full_chain_step(w + k, el, bl + k, pol, bench_cfg))
         times[("chain_scan", size)] = (t_k1, t_plain)
+        times[("chain_tile", size)] = (t_k7, t_plain)
         # operations: ~20 per sample in the features / runs / candidate
         # pass every sample goes through (a lower count: the slot passes'
-        # work depends on the data); the same reading for K2-K4 below
+        # work depends on the data); the same reading for K2-K4 below. K7
+        # does the same work on the same bytes as K1.
         bounds[("chain_scan", size)] = bound(
             nbytes(w, el, bl, pol, *outs1.values()), 20.0 * size * L)
+        bounds[("chain_tile", size)] = bounds[("chain_scan", size)]
+        b_ms = bounds[("chain_tile", size)][0]
         print(f"times chain_scan {size}x{L} ({smi}), median ms of 7: plain {t_plain:.3f} / "
               f"{t_plain2:.3f}; make_chain_scan step {t_step:.3f} / {t_step2:.3f} "
-              f"({size / t_step * 1e3:.0f} wf/s); kernel alone {t_k1:.3f} "
+              f"({size / t_step * 1e3:.0f} wf/s); kernel alone {t_k1:.3f} / {t_k1b:.3f} "
               f"({size / t_k1 * 1e3:.0f} wf/s)", flush=True)
-        del outs1
+        print(f"times chain_tile {size}x{L} ({smi}), median ms of 7: make_chain_tile step "
+              f"{t_tstep:.3f} / {t_tstep2:.3f} ({size / t_tstep * 1e3:.0f} wf/s) against "
+              f"make_chain_scan step (transposing copy included) {t_step:.3f} / {t_step2:.3f}; "
+              f"kernel alone {t_k7:.3f} / {t_k7b:.3f} ({size / t_k7 * 1e3:.0f} wf/s) against "
+              f"K1 alone {t_k1:.3f} / {t_k1b:.3f}; bound {b_ms:.4f} ms, K7 at "
+              f"{100 * b_ms / t_k7:.2f} %, K1 at {100 * b_ms / t_k1:.2f} %; {tile_rows} events "
+              f"per block, {tile_rows * ctc.event_smem_bytes(L)} B dynamic shared memory per "
+              f"block, 16-byte row loads {bool(vec)}; ptxas {tile_regs}", flush=True)
+        del outs1, w_e
 
         # K2
         kw2 = dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=K)
@@ -934,6 +1018,7 @@ def main() -> None:
           "jax was imported")
     replaces = {
         "chain_scan": "waveformanalysis_tpu/ops/chain_scan_pallas.py:90",
+        "chain_tile": "waveformanalysis_tpu/ops/chain_pallas.py:80",
         "peaks_scan": "waveformanalysis_tpu/ops/chain_scan_pallas.py:920",
         "hits_scan": "waveformanalysis_tpu/ops/chain_scan_pallas.py:1238",
         "width_scan": "waveformanalysis_tpu/ops/width_scan_pallas.py:59",

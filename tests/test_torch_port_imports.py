@@ -20,6 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 # modules the guard must find (it imports every module of the package)
 KEY_MODULES = (
     "waveformanalysis_tpu_torch.ops.chain_scan_cuda",
+    "waveformanalysis_tpu_torch.ops.chain_tile_cuda",
+    "waveformanalysis_tpu_torch.examples.fused_chain_demo",
     "waveformanalysis_tpu_torch.ops.width_scan_cuda",
     "waveformanalysis_tpu_torch.ops.filtering",
     "waveformanalysis_tpu_torch.ops.filter_cuda",
@@ -33,16 +35,18 @@ KEY_MODULES = (
 
 
 def test_port_imports_without_jax():
-    """A fresh import of every module of the port loads neither jax nor
-    any module of the JAX package (waveformanalysis_tpu)."""
+    """A fresh import of every module of the port (the demo among them),
+    with every facade name resolved, loads neither jax nor any module of
+    the JAX package (waveformanalysis_tpu)."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import waveformanalysis_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "print(json.dumps({'modules': mods, 'leaked': sorted(m for m in sys.modules\n"
-        "    if m.split('.')[0] in ('jax', 'jaxlib', 'waveformanalysis_tpu'))}))\n"
+        "names = [n for n in pkg.__all__ if getattr(pkg, n) is not None]\n"
+        "print(json.dumps({'modules': mods, 'names': names, 'leaked': sorted(m for m in\n"
+        "    sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'waveformanalysis_tpu'))}))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -50,6 +54,7 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(KEY_MODULES) <= set(result["modules"])
+    assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context"} <= set(result["names"])
     assert result["leaked"] == []
 
 

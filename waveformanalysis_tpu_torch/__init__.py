@@ -3,14 +3,109 @@
 Module paths mirror the JAX package (``ops/features.py`` here is the port
 of ``waveformanalysis_tpu/ops/features.py``), and every public function
 keeps the JAX package's event-major ``(n, L)`` layout, output keys and
-dtypes. The package imports torch and numpy only, never jax.
+dtypes. The package imports torch and numpy only, never jax. Device work
+runs on CUDA unless the caller asks for the CPU.
 
-Ported so far: slice 1, the standalone fused chain (features -> find_peaks
--> threshold hits -> 10-90% widths -> S1/S2 label), main entry
-:func:`waveformanalysis_tpu_torch.ops.chain_scan_cuda.make_chain_scan`;
-slice 2, the Context route ``Context.get_data(run, ["s1_s2",
-"hit_threshold"])`` (:mod:`waveformanalysis_tpu_torch.context.context`).
-Device work runs on CUDA unless the caller asks for the CPU.
+Use it through this facade, ``import waveformanalysis_tpu_torch as wa``:
+each facade name of the JAX package whose module is ported keeps its name
+(``wa.ChainConfig``, ``wa.full_chain_step``, ``wa.Context``, ``wa.Table``,
+...). The chain entries named after a kernel take the port's names:
+
+==============================  ==========================================
+JAX package                     port
+==============================  ==========================================
+``make_jit_chain``              ``make_chain`` (plain PyTorch)
+``make_jit_chain_scan``         ``make_chain_scan`` (K1, ``csrc/chain_scan.cu``)
+``chain_scan_pallas``           ``chain_scan_cuda``
+``make_jit_chain_pallas``       ``make_chain_tile`` (K7, ``csrc/chain_tile.cu``)
+``chain_pallas``                ``chain_tile_cuda``
+==============================  ==========================================
+
+``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
+Names whose modules are not ported yet (streaming, the sharded chains, the
+execution manager, DAQ and plotting utilities, ...) are absent: asking for
+one raises ``AttributeError``.
+
+Ported so far:
+
+- slice 1, the standalone fused chain (features -> find_peaks -> threshold
+  hits -> 10-90% widths -> S1/S2 label): ``make_chain_scan``, kernel K1;
+- slice 2, the Context route ``Context.get_data(run, ["s1_s2",
+  "hit_threshold"])``: the peaks, hit-run and width scan kernels K2-K4;
+- slice 3, the same route through ``filtered_waveforms`` (SG, or the
+  Butterworth bandpass through the zero-phase kernel K5 and its two-pass
+  mode K6);
+- slice 4, the tile-resident chain ``make_chain_tile`` (K7, one warp per
+  event on the event-major rows) and the fused-chain demo
+  (``python -m waveformanalysis_tpu_torch.examples.fused_chain_demo``).
 """
 
+from __future__ import annotations
+
+import importlib
+from typing import Any
+
 __version__ = "0.1.0"
+
+_P = "waveformanalysis_tpu_torch."
+
+# name -> (module, attribute)
+_LAZY_API = {
+    # dtypes / data model
+    "Table": (_P + "dtypes.table", "Table"),
+    "Schema": (_P + "dtypes.schema", "Schema"),
+    "ST_WAVEFORM_DTYPE": (_P + "dtypes.schema", "ST_WAVEFORM_DTYPE"),
+    "RECORDS_DTYPE": (_P + "dtypes.schema", "RECORDS_DTYPE"),
+    "create_record_dtype": (_P + "dtypes.schema", "create_record_dtype"),
+    # plugin system
+    "Plugin": (_P + "plugins.base", "Plugin"),
+    "Option": (_P + "plugins.base", "Option"),
+    "option": (_P + "plugins.base", "option"),
+    "takes_config": (_P + "plugins.base", "takes_config"),
+    "PluginSpec": (_P + "plugins.spec", "PluginSpec"),
+    # context / storage
+    "Context": (_P + "context.context", "Context"),
+    "MemmapStorage": (_P + "storage.memmap", "MemmapStorage"),
+    "SQLiteBackend": (_P + "storage.backends", "SQLiteBackend"),
+    "StorageBackend": (_P + "storage.backends", "StorageBackend"),
+    "CompressionManager": (_P + "storage.compression", "CompressionManager"),
+    "IntegrityChecker": (_P + "storage.integrity", "IntegrityChecker"),
+    "ErrorContext": (_P + "foundation.exceptions", "ErrorContext"),
+    "make_fake_st_waveforms": (_P + "testing.fixtures", "make_fake_st_waveforms"),
+    "make_tiny_context": (_P + "testing.fixtures", "make_tiny_context"),
+    # the fused chain
+    "ChainConfig": (_P + "models.full_chain", "ChainConfig"),
+    "full_chain_step": (_P + "models.full_chain", "full_chain_step"),
+    "make_chain": (_P + "models.full_chain", "make_chain"),
+    "example_chain_batch": (_P + "models.full_chain", "example_chain_batch"),
+    "batch_from_numpy": (_P + "models.full_chain", "batch_from_numpy"),
+    "make_chain_scan": (_P + "ops.chain_scan_cuda", "make_chain_scan"),
+    "chain_scan_cuda": (_P + "ops.chain_scan_cuda", "chain_scan_cuda"),
+    "find_peaks_scan": (_P + "ops.chain_scan_cuda", "find_peaks_scan"),
+    "make_chain_tile": (_P + "ops.chain_tile_cuda", "make_chain_tile"),
+    "chain_tile_cuda": (_P + "ops.chain_tile_cuda", "chain_tile_cuda"),
+    # foundation
+    "Profiler": (_P + "foundation.profiler", "Profiler"),
+    "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),
+    "ProgressTracker": (_P + "foundation.progress", "ProgressTracker"),
+    "ErrorSeverity": (_P + "foundation.exceptions", "ErrorSeverity"),
+    "PluginError": (_P + "foundation.exceptions", "PluginError"),
+    "StandardUnits": (_P + "foundation.units", "StandardUnits"),
+    "convert_time": (_P + "foundation.units", "convert_time"),
+}
+
+__all__ = sorted(_LAZY_API) + ["__version__"]
+
+
+def __getattr__(name: str) -> Any:
+    try:
+        module_name, attr = _LAZY_API[name]
+    except KeyError:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}") from None
+    value = getattr(importlib.import_module(module_name), attr)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return __all__

@@ -49,34 +49,6 @@
 
 #include "scan_common.cuh"
 
-// Shared with the ctypes mirrors in ops/chain_scan_cuda.py (_Params, _Outs):
-// keep the field order and types identical.
-struct ChainParams {
-  int n, L, K, K_hits;
-  int height_start, height_end, area_start;
-  int peak_distance, use_derivative;
-  int left_extension, right_extension, height_ext, baseline_samples;
-  float peak_height, peak_prominence, peak_width, rel_height;
-  float hit_threshold, rise_low, rise_high, s1_width_max, s2_width_min;
-};
-
-struct ChainOut {
-  float* height;
-  float* amp;
-  float* area;
-  float* max_abs_diff;
-  int32_t* peak_position;
-  int32_t* n_peaks;
-  int32_t* n_hits;
-  float* hit_integral;
-  float* rise_samples;
-  float* fall_samples;
-  float* width_samples;
-  int8_t* label;
-  int32_t* n_candidates;  // raw, uncapped: the wrapper derives overflow
-  int32_t* n_runs;
-};
-
 namespace {
 
 using wfa::kInf;

@@ -1,5 +1,6 @@
-// Per-event peak-finding steps shared by the chain kernel (chain_scan.cu)
-// and the find_peaks kernel (peaks_scan.cu).
+// Per-event peak-finding steps shared by the chain kernels (chain_scan.cu,
+// chain_tile.cu) and the find_peaks kernel (peaks_scan.cu), and the chain
+// kernels' parameter and output structs.
 //
 // Each function is one piece of scipy.signal.find_peaks as the JAX package's
 // ops/peaks.py (find_peaks_batch) defines it, written for one thread that
@@ -14,6 +15,35 @@
 #pragma once
 
 #include <stdint.h>
+
+// The chain kernels' arguments, shared with the ctypes mirrors in
+// ops/chain_scan_cuda.py (_Params, _Outs): keep the field order and types
+// identical. Global scope: the extern "C" entries take them by pointer.
+struct ChainParams {
+  int n, L, K, K_hits;
+  int height_start, height_end, area_start;
+  int peak_distance, use_derivative;
+  int left_extension, right_extension, height_ext, baseline_samples;
+  float peak_height, peak_prominence, peak_width, rel_height;
+  float hit_threshold, rise_low, rise_high, s1_width_max, s2_width_min;
+};
+
+struct ChainOut {
+  float* height;
+  float* amp;
+  float* area;
+  float* max_abs_diff;
+  int32_t* peak_position;
+  int32_t* n_peaks;
+  int32_t* n_hits;
+  float* hit_integral;
+  float* rise_samples;
+  float* fall_samples;
+  float* width_samples;
+  int8_t* label;
+  int32_t* n_candidates;  // raw, uncapped: the wrapper derives overflow
+  int32_t* n_runs;
+};
 
 namespace wfa {
 

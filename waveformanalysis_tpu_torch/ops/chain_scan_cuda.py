@@ -119,7 +119,10 @@ def _params(cfg: ChainConfig, n: int, L: int) -> _Params:
     )
 
 
-def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, torch.Tensor]:
+def check_chain_batch(waves, event_length, baselines, polarity_codes, cfg: ChainConfig) -> None:
+    """The checks both CUDA chain kernels (K1 here, K7 in chain_tile_cuda)
+    make before anything is built: dtypes, shapes, contiguity, one device,
+    1..32 slots and 2 <= L < 65536 (the int32 area sum is exact below)."""
     n, L = waves.shape
     dev = waves.device
     _check(waves, "waves", torch.int16, (n, L), dev)
@@ -129,15 +132,35 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, to
     if not (1 <= cfg.max_peaks <= MAX_SLOTS and 1 <= cfg.max_hits <= MAX_SLOTS):
         raise ValueError(
             f"max_peaks={cfg.max_peaks} / max_hits={cfg.max_hits}: the CUDA "
-            f"chain kernel holds 1..{MAX_SLOTS} slots"
+            f"chain kernels hold 1..{MAX_SLOTS} slots"
         )
     if not 2 <= L < 65536:
-        raise ValueError(f"wave length {L}: the CUDA chain kernel takes 2 <= L < 65536")
+        raise ValueError(f"wave length {L}: the CUDA chain kernels take 2 <= L < 65536")
 
+
+def chain_outputs(n: int, dev) -> Dict[str, torch.Tensor]:
+    """Empty per-event output tensors of the chain kernels, in _OUTS order."""
+    return {name: torch.empty(n, dtype=dt, device=dev) for name, dt in _OUTS}
+
+
+def with_overflow(outs: Dict[str, torch.Tensor], cfg: ChainConfig) -> Dict[str, torch.Tensor]:
+    """Replace the raw per-event candidate / run counts by the two int32
+    overflow scalars of the full_chain_step contract."""
+    n_cand = outs.pop("n_candidates")
+    n_runs = outs.pop("n_runs")
+    outs["n_peak_overflow"] = (n_cand > cfg.max_peaks).sum(dtype=torch.int32)
+    outs["n_hit_overflow"] = (n_runs > cfg.max_hits).sum(dtype=torch.int32)
+    return outs
+
+
+def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, torch.Tensor]:
+    check_chain_batch(waves, event_length, baselines, polarity_codes, cfg)
+    n, L = waves.shape
+    dev = waves.device
     lib = _library()
     with torch.cuda.device(dev):
         waves_t = waves.t().contiguous()  # time-major (L, n) copy on the device
-        outs = {name: torch.empty(n, dtype=dt, device=dev) for name, dt in _OUTS}
+        outs = chain_outputs(n, dev)
         ptrs = _Outs(*(outs[name].data_ptr() for name, _ in _OUTS))
         prm = _params(cfg, n, L)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -150,11 +173,7 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, to
         raise RuntimeError(f"chain_scan kernel launch failed: cudaError {err}")
     if n:  # the C entry launches nothing for an empty batch
         chain_scan_cuda.launches += 1
-    n_cand = outs.pop("n_candidates")
-    n_runs = outs.pop("n_runs")
-    outs["n_peak_overflow"] = (n_cand > cfg.max_peaks).sum(dtype=torch.int32)
-    outs["n_hit_overflow"] = (n_runs > cfg.max_hits).sum(dtype=torch.int32)
-    return outs
+    return with_overflow(outs, cfg)
 
 
 def chain_scan_cuda(
