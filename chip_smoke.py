@@ -25,6 +25,10 @@ version on the card, and drives the port's main paths:
   event on the event-major rows) on bench.py's workload, with slice 1's
   JAX counts, then the fused-chain demo (plain, tile and scan chains agree).
 
+The find_peaks (K2) and width-crossing (K4) kernels of slices 2 and 3 run
+one warp per event on the event-major rows as well (slice 5); phase 3
+holds them at K = 32 and on rows read from global memory (L = 65,536).
+
 Then it times the kernels alone and their plain versions (CUDA events) and
 the Context routes' warm per-run wall time at 65,536 and 1,048,576 events.
 
@@ -37,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -53,6 +58,7 @@ N_EVENTS = 65_536
 N_LARGE = 1_048_576  # 512 MB of int16 waves: a real run chunk
 N_ROUTE_REF = 8_192
 WAVE_LEN = 256
+LONG_ROW = 65_536  # K2 / K4 rows too long for shared memory (the long-row mode)
 ATOL, RTOL = 1e-3, 1e-4  # f32 outputs; ints, indices, counts, labels exact
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
@@ -206,6 +212,15 @@ def median_ms(fn, iters: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def kernel_tag(mangled: str) -> str:
+    """A short name for a kernel's mangled symbol: its template arguments
+    (``ILb1ELb0E`` -> ``<1,0>``, ``IsLb1E`` -> ``<s,1>``), else its tail."""
+    m = re.search(r"kernelI(.*?)EEv", mangled)
+    if not m:
+        return mangled[-40:]
+    return "<" + ",".join(a or b for a, b in re.findall(r"L[bi](\d+)E|([a-z])", m.group(1))) + ">"
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -290,10 +305,13 @@ def profile_route(ctx, rid: str, tag: str, smi: str) -> None:
             for e in prof.key_averages() if str(e.device_type).endswith("CUDA")]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     dev_ms = sum(r[0] for r in rows)
+    ours = [(round(t, 3), c, re.search(r"\w+_kernel", k).group(0)) for t, c, k in rows
+            if "at::" not in k and re.search(r"\w+_kernel", k)]
     print(f"route profile {tag} ({smi}): wall {wall_ms:.1f} ms under the "
           f"profiler, device busy {dev_ms:.2f} ms, idle share "
           f"{1 - dev_ms / wall_ms:.3f}; top device ops (ms, calls): "
-          f"{[(round(t, 3), c, k[:48]) for t, c, k in rows[:12]]}", flush=True)
+          f"{[(round(t, 3), c, k[:48]) for t, c, k in rows[:12]]}; the port's kernels "
+          f"{ours}", flush=True)
 
 
 def main() -> None:
@@ -345,8 +363,9 @@ def main() -> None:
                        "sosfilt"])
     for name, b in built.items():
         regs = "; ".join(
-            f"{p['function'][-40:]}: {p.get('registers')} regs, "
-            f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill st/ld"
+            f"{kernel_tag(p['function'])}: {p.get('registers')} regs, "
+            f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill st/ld, "
+            f"{p.get('static_smem', 0)} B static smem"
             for p in b.ptxas)
         print(f"build {name}: {b.path.name} in {b.seconds:.1f} s; {regs}", flush=True)
     print(f"build wall {time.perf_counter() - t0:.1f} s", flush=True)
@@ -406,7 +425,7 @@ def main() -> None:
         check(all(torch.equal(outs["chain_tile"][k], outs["chain_scan"][k]) for k in ints),
               f"chain_tile {tag}: integer outputs differ from chain_scan's")
         print(f"parity chain_tile {tag}: integer outputs {ints} = chain_scan's", flush=True)
-    del outs, ref, ragged250_np
+    del outs, ref
 
     # detection signals as the hit / hit_threshold device stages form them
     w_main = torch.from_numpy(main_np[0]).to(dev)
@@ -418,6 +437,21 @@ def main() -> None:
     sig_der = rsign[:, None] * (rw[:, 1:].float() - rw[:, :-1].float())
     peak_fields = ("peak_value", "prominence", "left_ips", "right_ips", "widths",
                    "left_bases", "right_bases")
+    # K = 32 as the routes run it; 65,529 x 250 (element row copies, a
+    # ragged last block), the derivative signal's 255 columns, and rows of
+    # 65,536 samples, read from global memory (the long-row mode)
+    w250, el250, bl250, pol250 = (torch.from_numpy(a).to(dev) for a in ragged250_np)
+    s250 = torch.where(pol250 > 0, 1.0, -1.0)[:, None] * (w250.float() - bl250[:, None])
+    # four rows of 256 of bench.py's events each: many pulses, overflowing
+    # slot tables, walks across the row; ragged valid lengths
+    wl = w_main[: 4 * LONG_ROW // L].reshape(4, LONG_ROW)
+    ell = torch.tensor([LONG_ROW, 40_000, 12_345, LONG_ROW - 3], dtype=torch.int32, device=dev)
+    bll = torch.full((4,), 1000.0, device=dev)
+    s_long = wl.float() - 1000.0
+    check(not csc.row_layout(LONG_ROW, 4, s_long.data_ptr(), csc.PEAK_SLOT_BYTES).staged,
+          "the long-row case does not reach the long-row mode")
+    dense_sig = torch.from_numpy(dense_np[0]).to(dev).float() - 1000.0
+    k32 = dict(height=60.0, prominence=30.0, width=1.5, distance=2, max_peaks=32)
     peak_cases = [
         ("bench_config7_k8", sig_main, vl_main,
          dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=8)),
@@ -425,7 +459,16 @@ def main() -> None:
          dict(height=60.0, prominence=30.0, width=1.5, distance=3, max_peaks=16)),
         ("derivative_k8", sig_der, (rel - 1).clamp(min=0),
          dict(height=20.0, prominence=5.0, width=1.0, distance=3, max_peaks=8)),
+        ("bench_k32_d2", sig_main, vl_main,
+         dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=32)),
+        ("dense_noise_k32_d2", dense_sig, rel,
+         dict(height=10.0, prominence=2.0, width=0.5, distance=2, max_peaks=32)),
+        ("n_minus_7_L250_k32", s250, el250, k32),
+        ("derivative_255_k32", sig_der, (rel - 1).clamp(min=0),
+         dict(height=20.0, prominence=5.0, width=1.0, distance=3, max_peaks=32)),
+        (f"long_rows_4x{LONG_ROW}_k32", s_long, ell, k32),
     ]
+    slots_of = {}
     for tag, sig, vl, kw in peak_cases:
         before = csc.find_peaks_scan.launches
         out = csc.find_peaks_scan(sig, valid_length=vl, **kw)
@@ -434,8 +477,10 @@ def main() -> None:
         ref = find_peaks_batch(sig, valid_length=vl, **kw)
         err = compare(ref, out, f"peaks {tag}", ref["valid"].cpu().numpy(), peak_fields)
         max_err["peaks_scan"] = max(max_err["peaks_scan"], err)
-        print(f"parity peaks_scan {tag}: ok, {int(ref['valid'].sum())} peaks, "
-              f"max |f32 diff| {err:.3g}", flush=True)
+        slots_of[tag] = out["position"]
+        print(f"parity peaks_scan {tag} ({sig.shape[0]}x{sig.shape[1]}): ok, "
+              f"{int(ref['valid'].sum())} peaks, {int((ref['n_candidates'] > kw['max_peaks']).sum())}"
+              f" events overflow, max |f32 diff| {err:.3g}", flush=True)
 
     hit_fields = ("position", "height", "integral", "seg_start", "seg_end",
                   "run_start", "run_end")
@@ -472,6 +517,11 @@ def main() -> None:
         ("k2_slots_k32_int16", w_main, bl_main, pos_main, True),
         ("k2_slots_k32_f32", w_main.float(), bl_main, pos_main, True),
         ("odd_positions_no_interp", rw, bl_main, pos_odd, False),
+        ("n_minus_7_L250_k32_int16", w250, bl250, slots_of["n_minus_7_L250_k32"], True),
+        (f"long_rows_4x{LONG_ROW}_k32_f32", wl.float(), bll,
+         slots_of[f"long_rows_4x{LONG_ROW}_k32"], True),
+        (f"long_rows_4x{LONG_ROW}_k32_int16", wl, bll,
+         slots_of[f"long_rows_4x{LONG_ROW}_k32"], True),
     ]
     for tag, w, bl, pos, interp in width_cases:
         before = wsc.width_crossings_scan.launches
@@ -481,9 +531,10 @@ def main() -> None:
         ref = wsc.width_crossings_plain(w, bl, pos, 0.1, 0.9, 0.9, 0.1, interp)
         err = compare(ref, out, f"width {tag}")
         max_err["width_scan"] = max(max_err["width_scan"], err)
-        print(f"parity width_scan {tag}: ok, {int((pos >= 0).sum())} occupied slots, "
-              f"max |f32 diff| {err:.3g}", flush=True)
-    del slots, sig_rag, sig_der, sig_edge
+        print(f"parity width_scan {tag} ({w.shape[0]}x{w.shape[1]} {str(w.dtype)[6:]}): ok, "
+              f"{int((pos >= 0).sum())} occupied slots, max |f32 diff| {err:.3g}", flush=True)
+    del slots, sig_rag, sig_der, sig_edge, slots_of, s250, w250, s_long, wl, dense_sig
+    del ragged250_np
 
     # K5 (zero-phase, one launch) and K6 (one direction, twice in the
     # two-pass mode) against the plain version on the same card tensors
@@ -695,10 +746,11 @@ def main() -> None:
             del ctx
 
     # ---- phase 6: kernel times ---------------------------------------------
-    # kernels alone on pre-transposed inputs (several copies in turn, more
-    # bytes than the 50 MB L2 holds, so each launch reads cold input), with
-    # the plain versions on the same inputs; slot capacity 32, the plugins'
-    # default and the Context route's
+    # kernels alone on cold inputs (several copies in turn, more bytes than
+    # the 50 MB L2 holds): time-major copies for K1 and K3, the event-major
+    # rows as the caller holds them for K7, K2 and K4; with the plain
+    # versions on the same inputs; slot capacity 32, the plugins' default
+    # and the Context route's
     times, bounds = {}, {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib_chain = csc._library()
@@ -780,29 +832,38 @@ def main() -> None:
               f"block, 16-byte row loads {bool(vec)}; ptxas {tile_regs}", flush=True)
         del outs1, w_e
 
-        # K2
+        # K2 (one warp per event on the event-major rows): alone and its
+        # wrapper step on the same cold copies
         kw2 = dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=K)
         outs2 = csc._tables(csc._PEAKS_OUTS, size, K, dev)
         ptrs2 = csc._PeaksOut(*(outs2[name].data_ptr() for name, _ in csc._PEAKS_OUTS))
         prm2 = csc._PeaksParams(n=size, L=L, K=K, distance=2, height=80.0,
                                 prominence=50.0, width=2.0, rel_height=0.5)
+        sig_e = [sig + k for k in range(n_copies)]
+        lay2 = csc.row_layout(L, 4, sig_e[0].data_ptr(), csc.PEAK_SLOT_BYTES)
 
         def k2(k):
-            err = lib_peaks.wfa_peaks_scan(sig_t[k % n_copies].data_ptr(), el.data_ptr(),
-                                           ctypes.byref(ptrs2), ctypes.byref(prm2), stream)
+            err = lib_peaks.wfa_peaks_scan(sig_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                           ctypes.byref(ptrs2), ctypes.byref(prm2), lay2.rows,
+                                           int(lay2.staged), int(lay2.vec), stream)
             check(err == 0, f"peaks kernel launch failed: cudaError {err}")
 
         t_k2 = median_ms(k2)
-        t_w2 = median_ms(lambda k: csc.find_peaks_scan(sig + k, valid_length=el, **kw2))
+        t_w2 = median_ms(lambda k: csc.find_peaks_scan(sig_e[k % n_copies], valid_length=el,
+                                                       **kw2))
+        t_k2b = median_ms(k2)
         t_p2 = median_ms(lambda k: find_peaks_batch(sig + k, valid_length=el, **kw2),
                          iters=5, warmup=1)
         times[("peaks_scan", size)] = (t_k2, t_p2)
         bounds[("peaks_scan", size)] = bound(nbytes(sig, el, *outs2.values()), 8.0 * size * L)
-        print(f"times peaks_scan {size}x{L} K={K} ({smi}): kernel alone {t_k2:.3f} ms, "
-              f"wrapper (with transpose) {t_w2:.3f} ms, plain find_peaks_batch "
-              f"{t_p2:.3f} ms", flush=True)
+        b2 = bounds[("peaks_scan", size)][0]
+        print(f"times peaks_scan {size}x{L} K={K} ({smi}): kernel alone {t_k2:.3f} / "
+              f"{t_k2b:.3f} ms ({100 * b2 / t_k2:.2f} % of the {b2:.4f} ms bound), wrapper "
+              f"step {t_w2:.3f} ms, plain find_peaks_batch {t_p2:.3f} ms; {lay2.rows} events "
+              f"per block, {lay2.smem_bytes} B shared memory, 16-byte copies {lay2.vec}",
+              flush=True)
         pos = outs2["position"].clone()
-        del outs2
+        del outs2, sig_e
 
         # K3
         outs3 = csc._tables(csc._HITS_OUTS, size, K, dev)
@@ -835,23 +896,32 @@ def main() -> None:
         prm4 = wsc._WidthParams(n=size, L=L, K=K, interpolation=1, rise_low=0.1,
                                 rise_high=0.9, fall_high=0.9, fall_low=0.1)
 
+        w_e = [w + k for k in range(n_copies)]
+        lay4 = csc.row_layout(L, 2, w_e[0].data_ptr())
+
         def k4(k):
-            err = lib_width.wfa_width_scan(w_t[k % n_copies].data_ptr(), 0, blw.data_ptr(),
+            err = lib_width.wfa_width_scan(w_e[k % n_copies].data_ptr(), 0, blw.data_ptr(),
                                            pos.data_ptr(), ctypes.byref(ptrs4),
-                                           ctypes.byref(prm4), stream)
+                                           ctypes.byref(prm4), lay4.rows, int(lay4.staged),
+                                           int(lay4.vec), stream)
             check(err == 0, f"width kernel launch failed: cudaError {err}")
 
         t_k4 = median_ms(k4)
-        t_w4 = median_ms(lambda k: wsc.width_crossings_scan(w + k, blw, pos, 0.1, 0.9, 0.9, 0.1))
+        t_w4 = median_ms(lambda k: wsc.width_crossings_scan(w_e[k % n_copies], blw, pos,
+                                                            0.1, 0.9, 0.9, 0.1))
+        t_k4b = median_ms(k4)
         t_p4 = median_ms(lambda k: wsc.width_crossings_plain(w + k, blw, pos, 0.1, 0.9, 0.9, 0.1),
                          iters=5, warmup=1)
         times[("width_scan", size)] = (t_k4, t_p4)
         bounds[("width_scan", size)] = bound(nbytes(w, blw, pos, *outs4.values()),
                                              2.0 * size * L)
-        print(f"times width_scan {size}x{L} K={K} ({smi}): kernel alone {t_k4:.3f} ms, "
-              f"wrapper (with transpose) {t_w4:.3f} ms, plain width_crossings_plain "
-              f"{t_p4:.3f} ms", flush=True)
-        del w, sig, w_t, outs4, pos
+        b4 = bounds[("width_scan", size)][0]
+        print(f"times width_scan {size}x{L} K={K} ({smi}): kernel alone {t_k4:.3f} / "
+              f"{t_k4b:.3f} ms ({100 * b4 / t_k4:.2f} % of the {b4:.4f} ms bound), wrapper "
+              f"step {t_w4:.3f} ms, plain width_crossings_plain {t_p4:.3f} ms; "
+              f"{int((pos >= 0).sum())} occupied slots; {lay4.rows} events per block, "
+              f"{lay4.smem_bytes} B shared memory, 16-byte copies {lay4.vec}", flush=True)
+        del w, sig, w_t, w_e, outs4, pos
         torch.cuda.empty_cache()
 
     # K5 / K6 alone on pre-transposed, mean-removed inputs (two copies in

@@ -13,6 +13,8 @@ outputs atol 1e-3 / rtol 1e-4. Slot values are compared where the slot's
 rows the hit mask emits.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +29,7 @@ from waveformanalysis_tpu.ops import widths as jwidths
 from waveformanalysis_tpu_torch.ops import chain_scan_cuda as tscan
 from waveformanalysis_tpu_torch.ops import width_scan_cuda as twscan
 from waveformanalysis_tpu_torch.ops import widths as twidths
+from test_torch_scan_kernels_cuda import peak_cases, tie_batch
 
 ATOL, RTOL = 1e-3, 1e-4
 PEAK_SLOT_FIELDS = ("peak_value", "prominence", "left_ips", "right_ips", "widths",
@@ -80,6 +83,28 @@ def test_find_peaks_scan_against_pallas_interpret():
                                 interpret=True, **kw)
     out = tscan.find_peaks_scan(torch.as_tensor(sig), valid_length=torch.as_tensor(vlen), **kw)
     assert int(np.asarray(ref["valid"]).sum()) > 20  # peaks were found
+    _compare(ref, out, PEAK_SLOT_FIELDS)
+
+
+@pytest.mark.parametrize("case", ["ties_k32_d1", "ties_k32_d3", "ties_k1_d2"])
+def test_find_peaks_scan_k32_ties(case):
+    """K = 32, the routes' slot capacity, on an int16-quantised batch full
+    of equal samples (plateaus, equal minima on both sides of a peak) with
+    ragged valid lengths: the tie rules decide every integer output.
+    Distance 1 goes through the Pallas kernel in interpret mode (about a
+    minute on the CPU at K = 32); with distance > 1 its K x K priority loop
+    takes that mode many minutes, so those cases go through the XLA
+    contract the JAX package's tests pin the Pallas kernel to."""
+    _, sig, vlen, kw = next(c for c in peak_cases() if c[0] == case)
+    if kw["distance"] == 1:
+        ref = jscan.find_peaks_scan(jnp.asarray(sig), valid_length=jnp.asarray(vlen),
+                                    interpret=True, **kw)
+    else:
+        ref = jpeaks.find_peaks_batch(jnp.asarray(sig), valid_length=jnp.asarray(vlen), **kw)
+    out = tscan.find_peaks_scan(torch.as_tensor(sig), valid_length=torch.as_tensor(vlen), **kw)
+    assert int(np.asarray(ref["valid"]).sum()) > (20 if kw["max_peaks"] == 1 else 50)
+    if kw["max_peaks"] == 32:
+        assert int(np.asarray(ref["n_candidates"]).max()) > 8  # slots past K = 8 are used
     _compare(ref, out, PEAK_SLOT_FIELDS)
 
 
@@ -197,6 +222,31 @@ def test_width_crossings_scan_against_pallas_interpret():
     assert (out["r_low_idx"].numpy()[empty] == waves.shape[1]).all()
 
 
+@pytest.mark.parametrize("case", ["k4_empty_column", "all_empty", "k1"])
+def test_width_crossings_scan_unaligned_against_pallas_interpret(case):
+    """L = 250 (rows that are not 16-byte aligned): real slots beside an
+    all-empty slot column, an all-empty table, and a single slot."""
+    waves, _ = tie_batch(64, 250, seed=12)
+    pos, _ = _slots(waves, K=4)
+    pos[:, 3] = -1
+    if case == "all_empty":
+        pos[:] = -1
+    elif case == "k1":
+        pos = np.ascontiguousarray(pos[:, :1])
+    bl = (waves[:, :50].astype(np.float32).sum(axis=1) / 50).astype(np.float32)
+    ref = jwscan.width_crossings_scan(jnp.asarray(waves), jnp.asarray(bl), jnp.asarray(pos),
+                                      0.1, 0.9, 0.9, 0.1, interpret=True)
+    out = twscan.width_crossings_scan(torch.as_tensor(waves), torch.as_tensor(bl),
+                                      torch.as_tensor(pos), 0.1, 0.9, 0.9, 0.1)
+    assert set(out) == set(ref)
+    occ = pos >= 0
+    assert (occ.sum() > 20) == (case != "all_empty")
+    for k in ref:  # the occupied slots, the rows the hit mask emits
+        _same(ref[k], out[k], k, occ)
+        # empty slots: no peak value, nothing found (the port's contract)
+        assert (out[k].numpy()[~occ] == (250 if k.endswith("_idx") else 0)).all(), k
+
+
 @pytest.mark.parametrize("interpolation", [True, False])
 @pytest.mark.parametrize("as_float", [False, True])
 def test_width_slots_scan_against_xla_contract(interpolation, as_float):
@@ -262,3 +312,65 @@ def test_cpu_tensors_never_launch_kernels(monkeypatch):
                                 torch.zeros((8, 2), dtype=torch.int32), 0.1, 0.9, 0.9, 0.1)
     assert (tscan.find_peaks_scan.launches, tscan.threshold_hits_scan.launches,
             twscan.width_crossings_scan.launches) == counts
+
+
+def test_row_layout_of_the_warp_kernels():
+    """Events per block, shared memory per block, the 16-byte copy flag and
+    the switch to rows read from global memory at the shared-memory limit
+    (the arithmetic of csrc/warp_rows.cuh)."""
+    slot = tscan.PEAK_SLOT_BYTES
+    assert tscan.row_layout(256, 4, 4096, slot) == tscan.RowLayout(
+        rows=8, smem_bytes=8 * (1024 + slot), staged=True, vec=True)
+    assert tscan.row_layout(256, 2, 4096).smem_bytes == 8 * 512  # K4's int16 rows, no tables
+    # 16-byte copies only for rows whose length and base are 16-byte aligned
+    assert not tscan.row_layout(255, 4, 4096, slot).vec  # the derivative signal
+    assert not tscan.row_layout(250, 2, 4096).vec
+    assert tscan.row_layout(248, 2, 4096).vec
+    assert not tscan.row_layout(256, 4, 4100, slot).vec
+    assert tscan.row_bytes(255, 4) == 1024 and tscan.row_bytes(250, 2) == 512
+    # fewer events per block where eight rows do not fit, one at the limit
+    assert tscan.row_layout(8192, 4, 0, slot).rows == 7
+    for elem, sb in ((4, slot), (2, 0)):
+        top = tscan.max_staged_length(elem, sb)
+        at, past = (tscan.row_layout(L, elem, 0, sb) for L in (top, top + 1))
+        assert (at.staged, at.rows) == (True, 1) and at.smem_bytes <= tscan.SMEM_BYTES
+        assert not past.staged and not past.vec
+        assert (past.rows, past.smem_bytes) == (tscan.ROW_WARPS, tscan.ROW_WARPS * sb)
+    # the long rows of chip_smoke.py's phase 3: 65,536 f32 samples are read
+    # from global memory, 65,536 int16 samples still fit one block
+    assert not tscan.row_layout(65_536, 4, 0, slot).staged
+    assert tscan.row_layout(65_536, 2, 0).staged
+
+
+def test_scan_wrappers_take_event_major_rows(monkeypatch):
+    """The CUDA path hands the kernels the event-major rows it was given
+    (no transposing copy), with the layout row_layout picks: checked with a
+    stand-in library on CPU tensors posing as CUDA tensors."""
+    seen = {}
+
+    class Lib:
+        def wfa_peaks_scan(self, x, vlen, outs, prm, rows, staged, vec, stream):
+            seen["peaks"] = (x, rows, staged, vec)
+            return 0
+
+        def wfa_width_scan(self, w, is_float, bl, pos, outs, prm, rows, staged, vec, stream):
+            seen["width"] = (w, is_float, rows, staged, vec)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tscan, "_peaks_library", Lib)
+    monkeypatch.setattr(twscan, "_library", Lib)
+    monkeypatch.setattr(tscan, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(twscan, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    sig = torch.zeros((6, 255))
+    tscan.find_peaks_scan(sig, 1.0, 1.0, 1.0, max_peaks=32,
+                          valid_length=torch.full((6,), 255, dtype=torch.int32))
+    assert seen["peaks"] == (sig.data_ptr(), 8, 1, 0)
+    waves = torch.zeros((6, 256), dtype=torch.int16)
+    twscan.width_crossings_scan(waves, torch.zeros(6), torch.zeros((6, 3), dtype=torch.int32),
+                                0.1, 0.9, 0.9, 0.1)
+    assert seen["width"] == (waves.data_ptr(), 0, 8, 1, int(waves.data_ptr() % 16 == 0))

@@ -1,6 +1,7 @@
-// scipy-parity find_peaks over a batch of events on Hopper (sm_90a).
+// scipy-parity find_peaks over a batch of events on Hopper (sm_90a), one
+// warp per event on the event-major rows.
 //
-// Replaces the TPU kernel waveformanalysis_tpu/ops/chain_scan_pallas.py
+// Replaces the TPU kernel waveformanalysis_tpu/ops/chain_scan_pallas.py:920
 // (_peaks_scan_kernel, behind find_peaks_scan) with its contract: nine
 // (n, K) slot tables (position, valid, peak value, prominence, left/right
 // ips, widths, left/right bases) and the uncapped per-event candidate count.
@@ -8,26 +9,51 @@
 // neighbour threshold); ops/chain_scan_cuda.py holds the two against each
 // other.
 //
-// Design. One thread per event; the wrapper hands the detection signal over
-// time-major, (L, n) float32, so the candidate pass reads one coalesced
-// 128-byte line per warp and step. The candidate pass keeps the first K
-// plateau midpoints in registers (K a template parameter, every slot loop
-// unrolled) and stops at the event's valid length. Greedy distance pruning
-// runs on those registers. Then each surviving candidate walks outward from
-// its position, the way scipy itself computes prominence and width: left and
-// right to the nearest higher sample for the bases, then from the peak
-// toward each base to the first sample at or below the evaluation height.
-// The TPU kernel instead swept the whole wave once per pass with 5K and 7K
-// state values per event, because a TPU vector lane cannot stop early; here
-// the walks touch only the samples scipy reads, and the slot state never
-// leaves registers.
+// What bounds it on this card: bytes. The f32 signal is read once (4 L
+// bytes per event) and 33 bytes per slot and 4 per event are written: at
+// 1,048,576 x 256 with K = 32, 1.07 GB in and 1.11 GB out, 0.654 ms at
+// 3.35 TB/s. The comparisons per sample are few next to that.
 //
-// What bounds it on this card: at 65536 x 256 the f32 input is 67 MB, more
-// than the 50 MB L2, so the candidate pass streams it from HBM once; the
-// walks then read a few samples each, uncoalesced but mostly from L2. The
-// serial, data-dependent chain of comparisons per sample limits a thread
-// more than bandwidth does; enough events run in parallel (65536 threads)
-// to cover that latency.
+// Design (warp_rows.cuh). One warp per event reads the event-major (n, L)
+// float32 signal as the caller forms it, with no transposing copy: the row
+// lands in shared memory by cp.async (16 bytes a lane where rows are
+// 16-byte aligned). Then:
+//
+//   candidates  32 samples a step, lane j on sample t = base + j: the
+//               difference d[t] = x[t] - x[t - 1], two ballots (d != 0,
+//               d > 0) give each lane the last nonzero difference before t
+//               (its index and direction, which the TPU kernel carries in a
+//               packed cummax), a third the plateau right edges; their
+//               exclusive popcount is the candidate rank. The first K
+//               plateau midpoints land in a per-warp slot table, in order;
+//               the count is not capped.
+//   pruning     lane k owns slot k (K <= 32). Each lane ranks its slot by
+//               priority (value descending, the higher slot first among
+//               equals); the warp walks the ranks in order, the owner
+//               broadcasts its position if it is still kept and the lanes
+//               within `distance` drop themselves: the keep set of
+//               wfa::distance_prune without its one-thread O(K^2) loop.
+//   walks       the left and right bases (nearest higher sample, then the
+//               minimum since it) and the rel-height crossings, in shared
+//               memory: the warp searches one kept slot at a time, 32
+//               samples a step (a ballot for the nearest higher sample or
+//               the crossing, a warp min-reduction with an index tie-break
+//               for the base). Lane k walking slot k serially (K7's walks)
+//               was 46 % slower on the H100 (bench.py's waves, K = 32,
+//               PERF.md): a tall peak's left-base walk runs to the row
+//               start while the other lanes idle.
+//   stores      lane k writes slot k of each table: one coalesced 128-byte
+//               store per table and event at K = 32.
+//
+// Ties (the int16 waves make equal samples common): the left base is the
+// minimum closest to the peak, the right base the first minimum, both walks
+// stop at the first sample strictly higher than the peak, the left crossing
+// is the last sample <= the evaluation height in [lbase, p], the right one
+// the first in [p, rbase]. Samples at or past the event's valid length are
+// never read as signal.
+//
+// Rows longer than shared memory holds (ops/chain_scan_cuda.py row_layout)
+// run the same code with the row read from global memory.
 //
 // Exactness: positions, counts and validity come from float32 comparisons
 // of interpolated values, so the build uses --fmad=false, IEEE division and
@@ -37,6 +63,7 @@
 #include <stdint.h>
 
 #include "scan_common.cuh"
+#include "warp_rows.cuh"
 
 // Mirrored by _PeaksParams / _PeaksOut in ops/chain_scan_cuda.py: keep the
 // field order and types identical.
@@ -60,127 +87,247 @@ struct PeaksOut {
 
 namespace {
 
+using wfa::kFull;
+using wfa::kInf;
 using wfa::kNeg;
+using wfa::lanes_below;
 
-template <int KT>
-__global__ void __launch_bounds__(128)
-peaks_scan_kernel(const float* __restrict__ x, const int32_t* __restrict__ vlen_in,
-                  PeaksOut out, PeaksParams P) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  const int n = P.n;
+constexpr int kSlotBytes = 2 * 32 * 4;  // candidate position and value tables
+
+// One slot's prominence bases, rel-height ips and validity.
+struct SlotResult {
+  float prom = 0.0f, lip = 0.0f, rip = 0.0f;
+  int lbase = 0, rbase = 0;
+  bool valid = false;
+};
+
+// ips and validity from the walks' results (the slot owner's arithmetic)
+template <typename X>
+__device__ __forceinline__ SlotResult finish_slot(X x, float v, float lmin, int lbase, float rmin,
+                                                  int rbase, int jl, int jr, float hev,
+                                                  const PeaksParams& P) {
+  SlotResult r;
+  r.prom = v - fmaxf(lmin, rmin);
+  r.lbase = lbase;
+  r.rbase = rbase;
+  r.lip = jl >= 0 ? wfa::left_ips(jl, x(jl), x(jl + 1), hev, lbase) : (float)lbase;
+  r.rip = jr < P.L ? wfa::right_ips(jr, x(jr), x(jr - 1), hev, rbase, P.L) : (float)rbase;
+  r.valid = r.prom >= P.prominence && r.rip - r.lip >= P.width;
+  return r;
+}
+
+// warp walks: slot (p, v) searched by the whole warp, 32 samples a step;
+// every lane returns the same result
+template <typename X>
+__device__ __forceinline__ SlotResult walk_warp(X x, int p, float v, int det_len,
+                                                const PeaksParams& P, int lane) {
+  // nearest higher sample left of p (-1: none), then the minimum over
+  // (jh, p], the one closest to p among equals
+  int jh = -1;
+  for (int hi = p - 1; hi >= 0; hi -= 32) {
+    const int t = hi - lane;
+    const unsigned m = __ballot_sync(kFull, t >= 0 && x(t) > v);
+    if (m) {
+      jh = hi - (__ffs(m) - 1);
+      break;
+    }
+  }
+  float lmin = kInf;
+  int lbase = -1;
+  for (int t = jh + 1 + lane; t <= p; t += 32) {
+    const float xt = x(t);
+    if (xt <= lmin) {  // t rises: the later sample wins a tie
+      lmin = xt;
+      lbase = t;
+    }
+  }
+  wfa::warp_argmin(lmin, lbase, true);
+  // nearest higher sample right of p (det_len: none), then the minimum over
+  // [p, jh), the first among equals
+  jh = det_len;
+  for (int lo = p + 1; lo < det_len; lo += 32) {
+    const int t = lo + lane;
+    const unsigned m = __ballot_sync(kFull, t < det_len && x(t) > v);
+    if (m) {
+      jh = lo + __ffs(m) - 1;
+      break;
+    }
+  }
+  float rmin = kInf;
+  int rbase = 1 << 30;
+  for (int t = p + lane; t < jh; t += 32) {
+    const float xt = x(t);
+    if (xt < rmin) {
+      rmin = xt;
+      rbase = t;
+    }
+  }
+  wfa::warp_argmin(rmin, rbase, false);
+  const float hev = wfa::rel_height_level(v, v - fmaxf(lmin, rmin), P.rel_height);
+  int jl = -1;
+  for (int hi = p; hi >= lbase; hi -= 32) {
+    const int t = hi - lane;
+    const unsigned m = __ballot_sync(kFull, t >= lbase && x(t) <= hev);
+    if (m) {
+      jl = hi - (__ffs(m) - 1);
+      break;
+    }
+  }
+  int jr = P.L;
+  for (int lo = p; lo <= rbase; lo += 32) {
+    const int t = lo + lane;
+    const unsigned m = __ballot_sync(kFull, t <= rbase && x(t) <= hev);
+    if (m) {
+      jr = lo + __ffs(m) - 1;
+      break;
+    }
+  }
+  return finish_slot(x, v, lmin, lbase, rmin, rbase, jl, jr, hev, P);
+}
+
+template <bool kStaged>
+__global__ void __launch_bounds__(256)
+peaks_warp_kernel(const float* __restrict__ x, const int32_t* __restrict__ vlen_in,
+                  PeaksOut out, PeaksParams P, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
   const int L = P.L;
   const int K = P.K;
-  const int det_len = min(max(vlen_in[i], 0), L);  // a length above L acts as L
-  auto xs = [&](int t) -> float { return x[(size_t)t * n + i]; };
-
-  // ---- candidates: plateau midpoints, first K kept ------------------------
-  int pos[KT];
-  float val[KT];
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    pos[k] = -1;
-    val[k] = kNeg;
+  unsigned char* mine = smem + warp * wfa::warp_bytes(L, 4, kStaged, kSlotBytes);
+  int* cpos = reinterpret_cast<int*>(mine + wfa::warp_bytes(L, 4, kStaged, 0));
+  float* cval = reinterpret_cast<float*>(cpos + 32);
+  const float* row = x + (size_t)ev * L;
+  if (kStaged) {
+    wfa::stage_row(reinterpret_cast<float*>(mine), row, L, vec, lane);
+    row = reinterpret_cast<const float*>(mine);
   }
-  int count = 0, left_edge = 0;
-  bool prev_rise = false;
-  // no candidate is emitted at or past det_len, so the walk stops there
-  float prev = det_len > 0 ? xs(0) : kNeg;
-  for (int t = 0; t < det_len; ++t) {
-    const float cur = xs(t);
-    wfa::candidate_step<KT>(t, cur, prev, det_len, K, P.height, pos, val, count,
-                            left_edge, prev_rise);
-    prev = cur;
-  }
-  const unsigned cand_valid = wfa::distance_prune<KT>(
-      pos, val, wfa::candidate_mask<KT>(count, K), P.distance);
+  auto xs = [&](int t) -> float { return row[t]; };
+  const int det_len = min(max(vlen_in[ev], 0), L);  // a length above L acts as L
 
-  // ---- per candidate: bases, evaluation height, interpolated ips ----------
-  const size_t row = (size_t)i * K;
-#pragma unroll
-  for (int k = 0; k < KT; ++k) {
-    if (k >= K) continue;
-    float prom = 0.0f, lip = 0.0f, rip = 0.0f;
-    int lbase = 0, rbase = 0;
-    bool fv = false;
-    if (cand_valid >> k & 1u) {
-      const int p = pos[k];  // 1 <= p <= det_len - 2
-      const float v = val[k];
-      // left base: the last minimum since the last higher sample before p
-      float lmin = v;
-      lbase = p;
-      for (int t = p - 1; t >= 0; --t) {
-        const float xt = xs(t);
-        if (xt > v) break;
-        if (xt < lmin) {
-          lmin = xt;
-          lbase = t;
-        }
-      }
-      // right base: the first minimum before the next higher sample
-      float rmin = v;
-      rbase = p;
-      for (int t = p + 1; t < det_len; ++t) {
-        const float xt = xs(t);
-        if (xt > v) break;
-        if (xt < rmin) {
-          rmin = xt;
-          rbase = t;
-        }
-      }
-      prom = v - fmaxf(lmin, rmin);
-      const float hev = wfa::rel_height_level(v, prom, P.rel_height);
-      // last sample in [lbase, p] at or below hev; first in [p, rbase]
-      int jl = -1;
-      for (int t = p; t >= lbase; --t) {
-        if (xs(t) <= hev) {
-          jl = t;
-          break;
-        }
-      }
-      int jr = L;
-      for (int t = p; t <= rbase; ++t) {
-        if (xs(t) <= hev) {
-          jr = t;
-          break;
-        }
-      }
-      lip = jl >= 0 ? wfa::left_ips(jl, xs(jl), xs(jl + 1), hev, lbase) : (float)lbase;
-      rip = jr < L ? wfa::right_ips(jr, xs(jr), xs(jr - 1), hev, rbase, L) : (float)rbase;
-      fv = prom >= P.prominence && rip - lip >= P.width;
+  // ---- candidates: plateau midpoints, the first K kept -----------------
+  int count = 0;   // candidates so far (uncapped)
+  int carry = -1;  // the last nonzero difference before this step: 2 t + rise
+  for (int b = 0; b < det_len; b += 32) {
+    const int t = b + lane;
+    const bool in = t >= 1 && t < det_len;
+    const float prev = in ? xs(t - 1) : 0.0f;
+    const float d = in ? xs(t) - prev : 0.0f;
+    const unsigned nz = __ballot_sync(kFull, in && d != 0.0f);
+    const unsigned up = __ballot_sync(kFull, in && d > 0.0f);
+    int ff = carry;
+    const unsigned before = nz & lanes_below(lane);
+    if (before) {
+      const int j = 31 - __clz(before);
+      ff = 2 * (b + j) + (int)(up >> j & 1u);
     }
-    out.position[row + k] = fv ? pos[k] : -1;
-    out.valid[row + k] = fv ? 1 : 0;
-    out.peak_value[row + k] = val[k];
-    out.prominence[row + k] = prom;
-    out.left_ips[row + k] = lip;
-    out.right_ips[row + k] = rip;
-    out.widths[row + k] = rip - lip;
-    out.left_bases[row + k] = lbase;
-    out.right_bases[row + k] = rbase;
+    // a fall after a rise: the plateau [ff / 2, t - 1] ends at t - 1
+    int mid = 0;
+    bool emit = false;
+    if (in && d < 0.0f && ff >= 0 && (ff & 1)) {
+      mid = ((ff >> 1) + t - 1) / 2;
+      emit = mid >= 1 && mid <= det_len - 2 && prev >= P.height;
+    }
+    const unsigned em = __ballot_sync(kFull, emit);
+    if (emit) {
+      const int r = count + __popc(em & lanes_below(lane));
+      if (r < K) {
+        cpos[r] = mid;
+        cval[r] = prev;
+      }
+    }
+    count += __popc(em);
+    if (nz) {
+      const int j = 31 - __clz(nz);
+      carry = 2 * (b + j) + (int)(up >> j & 1u);
+    }
   }
-  out.n_candidates[i] = count;
+  __syncwarp();
+
+  // ---- lane k owns slot k; greedy distance pruning by priority --------
+  const int nc = min(count, K);
+  const bool cand = lane < nc;
+  const int p = cand ? cpos[lane] : -1;
+  const float v = cand ? cval[lane] : kNeg;
+  unsigned keep = __ballot_sync(kFull, cand);
+  if (P.distance > 1 && nc > 1) {
+    // rank: slots of higher priority (a larger value; the higher slot
+    // among equal values)
+    int rank = 0;
+    for (int b = 0; b < nc; ++b) {
+      const float vb = __shfl_sync(kFull, v, b);
+      rank += (vb > v) || (vb == v && b > lane);
+    }
+    bool kept = cand;
+    for (int r = 0; r < nc; ++r) {
+      const unsigned owner = __ballot_sync(kFull, cand && rank == r);
+      if (!owner) continue;
+      const int o = __ffs(owner) - 1;
+      const bool o_kept = __shfl_sync(kFull, (int)kept, o) != 0;
+      const int po = __shfl_sync(kFull, p, o);
+      if (o_kept && lane != o && abs(p - po) < P.distance) kept = false;
+    }
+    keep = __ballot_sync(kFull, kept);
+  }
+
+  // ---- per kept slot: bases, evaluation height, interpolated ips -------
+  SlotResult res;
+  for (unsigned todo = keep; todo; todo &= todo - 1) {
+    const int s = __ffs(todo) - 1;
+    const SlotResult r = walk_warp(xs, __shfl_sync(kFull, p, s), __shfl_sync(kFull, v, s),
+                                   det_len, P, lane);
+    if (lane == s) res = r;
+  }
+
+  // ---- lane k writes slot k of every table ----------------------------
+  if (lane < K) {
+    const size_t o = (size_t)ev * K + lane;
+    out.position[o] = res.valid ? p : -1;
+    out.valid[o] = res.valid ? 1 : 0;
+    out.peak_value[o] = v;
+    out.prominence[o] = res.prom;
+    out.left_ips[o] = res.lip;
+    out.right_ips[o] = res.rip;
+    out.widths[o] = res.rip - res.lip;
+    out.left_bases[o] = res.lbase;
+    out.right_bases[o] = res.rbase;
+  }
+  if (lane == 0) out.n_candidates[ev] = count;
+}
+
+template <bool kStaged>
+int launch(const float* x, const int32_t* vlen, const PeaksOut* out, const PeaksParams* P,
+           int rows, int vec, cudaStream_t s) {
+  const int smem = rows * wfa::warp_bytes(P->L, 4, kStaged, kSlotBytes);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        peaks_warp_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((P->n + rows - 1) / rows);
+  peaks_warp_kernel<kStaged><<<grid, 32 * rows, smem, s>>>(x, vlen, *out, *P, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// find_peaks on `stream` for P->n events of P->L detection samples.
-// x_t is the (L, n) time-major float32 signal, vlen the per-event valid
-// length. Slot tables hold 1..32 peaks. Returns the cudaError_t of the
-// launch (0 = success).
-extern "C" int wfa_peaks_scan(const float* x_t, const int32_t* vlen,
-                              const PeaksOut* out, const PeaksParams* P, void* stream) {
+// find_peaks on `stream` for P->n events of P->L detection samples. x is
+// the event-major (n, L) float32 signal, vlen the per-event valid length;
+// slot tables hold 1..32 peaks. `rows` events (warps) per block; staged =
+// 0 reads rows from global memory (rows longer than shared memory holds);
+// vec != 0 promises 16-byte aligned rows (L % 4 == 0 and an aligned base).
+// ops/chain_scan_cuda.py::row_layout picks rows / staged / vec. Returns
+// the cudaError_t of the launch (0 = success).
+extern "C" int wfa_peaks_scan(const float* x, const int32_t* vlen, const PeaksOut* out,
+                              const PeaksParams* P, int rows, int staged, int vec,
+                              void* stream) {
   if (P->n <= 0) return 0;
-  if (P->K < 1 || P->K > 32) return (int)cudaErrorInvalidValue;
-  const dim3 block(128);
-  const dim3 grid((P->n + 127) / 128);
+  if (P->K < 1 || P->K > 32 || rows < 1 || rows > 8 ||
+      rows * wfa::warp_bytes(P->L, 4, staged, kSlotBytes) > wfa::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (P->K <= 8) {
-    peaks_scan_kernel<8><<<grid, block, 0, s>>>(x_t, vlen, *out, *P);
-  } else if (P->K <= 16) {
-    peaks_scan_kernel<16><<<grid, block, 0, s>>>(x_t, vlen, *out, *P);
-  } else {
-    peaks_scan_kernel<32><<<grid, block, 0, s>>>(x_t, vlen, *out, *P);
-  }
-  return (int)cudaGetLastError();
+  return staged ? launch<true>(x, vlen, out, P, rows, vec, s)
+                : launch<false>(x, vlen, out, P, rows, 0, s);
 }

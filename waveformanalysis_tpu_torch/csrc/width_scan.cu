@@ -1,6 +1,7 @@
-// 10-90 % width crossings for K peak slots per event on Hopper (sm_90a).
+// 10-90 % width crossings for K peak slots per event on Hopper (sm_90a),
+// one warp per event on the event-major rows.
 //
-// Replaces the TPU kernel waveformanalysis_tpu/ops/width_scan_pallas.py
+// Replaces the TPU kernel waveformanalysis_tpu/ops/width_scan_pallas.py:59
 // (_width_scan_kernel, behind width_crossings_scan). Per slot with position
 // p: the corrected peak value pv = wave[p] - baseline, and for the four
 // thresholds pv * {rise_low, rise_high, fall_high, fall_low} the first
@@ -12,22 +13,32 @@
 // baseline comes from the caller. Its plain PyTorch version is
 // ops/width_scan_cuda.py (width_crossings_plain).
 //
-// Design. One thread per event; the wrapper hands the waves over
-// time-major, (L, n) int16 or float32, as for the other scan kernels. Each
-// occupied slot reads its peak sample, then walks forward from 0 until both
-// rising crossings are found (or p is reached) and forward from p until both
-// falling crossings are found: a pulse's crossings lie next to it, so a walk
-// stops long before L. The TPU kernel swept all L samples for every slot in
-// two passes because its lanes cannot stop early. The slot loop is not
-// unrolled and holds no slot table: each slot's results go straight out.
+// What bounds it on this card: bytes. The waves are read once (2 L bytes per
+// event for int16) with the positions and baseline, and 13 values of 4
+// bytes per slot are written: at 1,048,576 x 256 with K = 32, 0.69 GB in
+// and 1.74 GB out, 0.722 ms at 3.35 TB/s. The outputs dominate.
 //
-// What bounds it on this card: the reads are short, data-dependent walks,
-// uncoalesced across a warp (each thread is at its own sample), mostly
-// served from L2 right after the peak kernel read the same events; the
-// outputs (13 values per slot) are the largest byte count it moves.
+// Design (warp_rows.cuh). One warp per event reads the event-major (n, L)
+// int16 or float32 waves as they are, with no transposing copy: the raw row
+// lands in shared memory by cp.async (16 bytes a lane where rows are
+// 16-byte aligned), and corr[t] = float(w[t]) - baseline is formed at each
+// read (one subtraction, the plain version's). Lane k reads slot k's position in one coalesced load.
+// A ballot of the occupied slots drives the search: for each occupied slot
+// the warp reads 32 samples a step, one ballot per threshold pair (both
+// rising thresholds on [0, p), both falling ones on [p, L)), __ffs gives the
+// first crossing, and the search stops when both are found. A pulse's
+// crossings lie next to it, so a search takes a few steps, and empty slots
+// do no work. Lane k then reads its capture samples and writes slot k of
+// the 13 tables, empty slots included: one coalesced store per table and
+// event at K = 32. K above 32 runs in chunks of 32 slots.
+//
+// Rows longer than shared memory holds (ops/chain_scan_cuda.py row_layout)
+// run the same code with the row read from global memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_rows.cuh"
 
 // Mirrored by _WidthParams / _WidthOut in ops/width_scan_cuda.py.
 struct WidthParams {
@@ -43,92 +54,131 @@ struct WidthOut {
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-width_scan_kernel(const T* __restrict__ w, const float* __restrict__ bl_in,
-                  const int32_t* __restrict__ pos_in, WidthOut out, WidthParams P) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  const int n = P.n;
-  const int L = P.L;
-  const float bl = bl_in[i];
-  auto corr = [&](int t) -> float { return (float)w[(size_t)t * n + i] - bl; };
-  const float frac[4] = {P.rise_low, P.rise_high, P.fall_high, P.fall_low};
+using wfa::kFull;
 
-  for (int k = 0; k < P.K; ++k) {
-    const size_t o = (size_t)i * P.K + k;
-    const int p = pos_in[o];
+// First t in [lo, hi) with cond(t) for two conditions at once, 32 samples a
+// step; `hi` = not found. Warp-uniform results.
+template <typename C0, typename C1>
+__device__ __forceinline__ void first_two(int lo, int hi, int lane, C0 c0, C1 c1, int& f0,
+                                          int& f1) {
+  f0 = f1 = hi;
+  for (int b = lo; b < hi; b += 32) {
+    const int t = b + lane;
+    bool a0 = false, a1 = false;
+    if (t < hi) {
+      a0 = c0(t);
+      a1 = c1(t);
+    }
+    const unsigned m0 = __ballot_sync(kFull, a0);
+    const unsigned m1 = __ballot_sync(kFull, a1);
+    if (f0 == hi && m0) f0 = b + __ffs(m0) - 1;
+    if (f1 == hi && m1) f1 = b + __ffs(m1) - 1;
+    if (f0 < hi && f1 < hi) break;
+  }
+}
+
+template <typename T, bool kStaged>
+__global__ void __launch_bounds__(256)
+width_warp_kernel(const T* __restrict__ w, const float* __restrict__ bl_in,
+                  const int32_t* __restrict__ pos_in, WidthOut out, WidthParams P, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
+  const int L = P.L;
+  const int K = P.K;
+  const float frac[4] = {P.rise_low, P.rise_high, P.fall_high, P.fall_low};
+  const T* row = w + (size_t)ev * L;
+  if (kStaged) {
+    T* buf = reinterpret_cast<T*>(smem + warp * wfa::warp_bytes(L, (int)sizeof(T), 1, 0));
+    wfa::stage_row(buf, row, L, vec, lane);
+    row = buf;
+  }
+  const float bl = bl_in[ev];
+  auto corr = [&](int t) -> float { return (float)row[t] - bl; };
+  for (int k0 = 0; k0 < K; k0 += 32) {
+    const int k = k0 + lane;
+    const size_t o = (size_t)ev * K + k;
+    const int p = k < K ? pos_in[o] : -1;
+    const bool occ = k < K && p >= 0 && p < L;
     int idx[4] = {L, L, L, L};
-    float y0[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    float y1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
     float pv = 0.0f;
-    if (p >= 0 && p < L) {
-      pv = corr(p);
+    for (unsigned todo = __ballot_sync(kFull, occ); todo; todo &= todo - 1) {
+      const int s = __ffs(todo) - 1;
+      const int ps = __shfl_sync(kFull, p, s);
+      const float pvs = corr(ps);
       float thr[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) thr[j] = __fmul_rn(pv, frac[j]);
-      // rising (j = 0, 1): first t in [0, p) with corr >= thr
-      float c_prev = corr(0);
-      for (int t = 0; t < p && (idx[0] == L || idx[1] == L); ++t) {
-        const float c = corr(t);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          if (idx[j] == L && c >= thr[j]) {
-            idx[j] = t;
-            y0[j] = c_prev;
-            y1[j] = c;
-          }
-        }
-        c_prev = c;
-      }
-      // falling (j = 2, 3): first t in [p, L) with corr <= thr
-      c_prev = corr(max(p - 1, 0));
-      for (int t = p; t < L && (idx[2] == L || idx[3] == L); ++t) {
-        const float c = corr(t);
-#pragma unroll
-        for (int j = 2; j < 4; ++j) {
-          if (idx[j] == L && c <= thr[j]) {
-            idx[j] = t;
-            y0[j] = c_prev;
-            y1[j] = c;
-          }
-        }
-        c_prev = c;
-      }
-      if (!P.interpolation) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) y0[j] = y1[j] = 0.0f;
+      for (int j = 0; j < 4; ++j) thr[j] = __fmul_rn(pvs, frac[j]);
+      int f[4];
+      first_two(
+          0, ps, lane, [&](int t) { return corr(t) >= thr[0]; },
+          [&](int t) { return corr(t) >= thr[1]; }, f[0], f[1]);
+      first_two(
+          ps, L, lane, [&](int t) { return corr(t) <= thr[2]; },
+          [&](int t) { return corr(t) <= thr[3]; }, f[2], f[3]);
+      if (lane == s) {
+        pv = pvs;
+        idx[0] = f[0] < ps ? f[0] : L;  // [0, p): not found is L
+        idx[1] = f[1] < ps ? f[1] : L;
+        idx[2] = f[2];
+        idx[3] = f[3];
       }
     }
+    if (k < K) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      out.idx[j][o] = idx[j];
-      out.y[2 * j][o] = y0[j];
-      out.y[2 * j + 1][o] = y1[j];
+      for (int j = 0; j < 4; ++j) {
+        float y0 = 0.0f, y1 = 0.0f;
+        if (P.interpolation && idx[j] < L) {
+          y0 = corr(max(idx[j] - 1, 0));
+          y1 = corr(idx[j]);
+        }
+        out.idx[j][o] = idx[j];
+        out.y[2 * j][o] = y0;
+        out.y[2 * j + 1][o] = y1;
+      }
+      out.peak_value[o] = pv;
     }
-    out.peak_value[o] = pv;
   }
+}
+
+template <typename T, bool kStaged>
+int launch(const void* w, const float* baseline, const int32_t* positions, const WidthOut* out,
+           const WidthParams* P, int rows, int vec, cudaStream_t s) {
+  const int smem = rows * wfa::warp_bytes(P->L, (int)sizeof(T), kStaged, 0);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        width_warp_kernel<T, kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((P->n + rows - 1) / rows);
+  width_warp_kernel<T, kStaged><<<grid, 32 * rows, smem, s>>>(
+      static_cast<const T*>(w), baseline, positions, *out, *P, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Width crossings on `stream` for P->n events of P->L samples and P->K
-// slots. w_t is the (L, n) time-major wave matrix (int16 when is_float is
+// slots. w is the event-major (n, L) wave matrix (int16 when is_float is
 // 0, float32 otherwise), baseline (n,) float32, positions (n, K) int32.
-// Returns the cudaError_t of the launch.
-extern "C" int wfa_width_scan(const void* w_t, int is_float, const float* baseline,
+// `rows` events (warps) per block; staged = 0 reads rows from global
+// memory; vec != 0 promises 16-byte aligned rows
+// (ops/chain_scan_cuda.py::row_layout picks them). Returns the cudaError_t
+// of the launch.
+extern "C" int wfa_width_scan(const void* w, int is_float, const float* baseline,
                               const int32_t* positions, const WidthOut* out,
-                              const WidthParams* P, void* stream) {
+                              const WidthParams* P, int rows, int staged, int vec,
+                              void* stream) {
   if (P->n <= 0 || P->K <= 0) return 0;
-  const dim3 block(128);
-  const dim3 grid((P->n + 127) / 128);
+  if (rows < 1 || rows > 8 ||
+      rows * wfa::warp_bytes(P->L, is_float ? 4 : 2, staged, 0) > wfa::kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_float) {
-    width_scan_kernel<float><<<grid, block, 0, s>>>(
-        static_cast<const float*>(w_t), baseline, positions, *out, *P);
-  } else {
-    width_scan_kernel<int16_t><<<grid, block, 0, s>>>(
-        static_cast<const int16_t*>(w_t), baseline, positions, *out, *P);
-  }
-  return (int)cudaGetLastError();
+  if (is_float)
+    return staged ? launch<float, true>(w, baseline, positions, out, P, rows, vec, s)
+                  : launch<float, false>(w, baseline, positions, out, P, rows, 0, s);
+  return staged ? launch<int16_t, true>(w, baseline, positions, out, P, rows, vec, s)
+                : launch<int16_t, false>(w, baseline, positions, out, P, rows, 0, s);
 }

@@ -80,6 +80,9 @@ def parse_ptxas(log: str) -> List[Dict[str, object]]:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur:
+            cur["static_smem"] = int(m.group(1))
     return out
 
 

@@ -8,7 +8,8 @@ Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
   raw per-event candidate/run counts;
 - ``find_peaks_scan`` (``csrc/peaks_scan.cu``): scipy-parity find_peaks,
   the contract of ``ops.peaks.find_peaks_batch`` without a neighbour
-  threshold;
+  threshold; one warp per event on the event-major rows (``row_layout``,
+  shared with ``width_crossings_scan``);
 - ``threshold_hits_scan`` (``csrc/hits_scan.cu``): threshold runs, the
   contract of ``ops.hits.threshold_hits_batch``.
 
@@ -23,6 +24,7 @@ contract (the JAX package's tests compare them the same way).
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
@@ -210,6 +212,49 @@ def make_chain_scan(cfg: Optional[ChainConfig] = None):
 
 
 # ---------------------------------------------------------------------------
+# The warp-per-event row layout of K2 and K4 (csrc/warp_rows.cuh)
+# ---------------------------------------------------------------------------
+
+SMEM_BYTES = 232_448  # shared memory one block can use on the H100
+ROW_WARPS = 8  # events (warps) per block of the warp-per-event kernels
+PEAK_SLOT_BYTES = 2 * 32 * 4  # K2's per-warp candidate position / value tables
+
+
+@dataclass(frozen=True)
+class RowLayout:
+    """How a warp-per-event kernel holds its rows (``csrc/warp_rows.cuh``)."""
+
+    rows: int  # events (warps) per block
+    smem_bytes: int  # dynamic shared memory per block
+    staged: bool  # rows copied to shared memory; False: read from global memory
+    vec: bool  # 16-byte row copies (rows and base 16-byte aligned)
+
+
+def row_bytes(L: int, elem: int) -> int:
+    """Shared-memory bytes of one staged row of L elements of ``elem``
+    bytes, padded to 16 (``wfa::row_bytes``)."""
+    return (L * elem + 15) // 16 * 16
+
+
+def row_layout(L: int, elem: int, base_ptr: int, slot_bytes: int = 0) -> RowLayout:
+    """The layout for rows of L elements of ``elem`` bytes starting at
+    address ``base_ptr``: ROW_WARPS events per block where they fit, fewer
+    where they do not, and rows read from global memory where one row and
+    ``slot_bytes`` of per-warp tables exceed a block's shared memory."""
+    per_warp = row_bytes(L, elem) + slot_bytes
+    if per_warp > SMEM_BYTES:  # long rows
+        return RowLayout(ROW_WARPS, ROW_WARPS * slot_bytes, False, False)
+    rows = min(ROW_WARPS, SMEM_BYTES // per_warp)
+    vec = (L * elem) % 16 == 0 and base_ptr % 16 == 0
+    return RowLayout(rows, rows * per_warp, True, vec)
+
+
+def max_staged_length(elem: int, slot_bytes: int = 0) -> int:
+    """The longest row that is still staged in shared memory."""
+    return (SMEM_BYTES - slot_bytes) // 16 * 16 // elem
+
+
+# ---------------------------------------------------------------------------
 # find_peaks_scan (csrc/peaks_scan.cu)
 # ---------------------------------------------------------------------------
 
@@ -236,8 +281,7 @@ class _PeaksOut(ctypes.Structure):
 def _peaks_library() -> ctypes.CDLL:
     return _scan_library("peaks_scan", "wfa_peaks_scan", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_PeaksOut),
-        ctypes.POINTER(_PeaksParams), ctypes.c_void_p,
-    ])
+        ctypes.POINTER(_PeaksParams)] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _tables(specs, n: int, K: int, dev) -> Dict[str, torch.Tensor]:
@@ -271,7 +315,7 @@ def find_peaks_scan(
             signal, height, prominence, width, distance=distance,
             max_peaks=max_peaks, rel_height=rel_height, valid_length=valid_length,
         )
-    x = signal.to(torch.float32)
+    x = signal.to(torch.float32).contiguous()  # event-major, as the caller formed it
     n, L = x.shape
     K = int(max_peaks)
     dev = x.device
@@ -280,15 +324,16 @@ def find_peaks_scan(
     vlen = (torch.full((n,), L, dtype=torch.int32, device=dev) if valid_length is None
             else valid_length.to(torch.int32).contiguous())
     _check(vlen, "valid_length", torch.int32, (n,), dev)
+    lay = row_layout(L, 4, x.data_ptr(), PEAK_SLOT_BYTES)
     lib = _peaks_library()
     with torch.cuda.device(dev):
-        x_t = x.t().contiguous()  # time-major (L, n) copy on the device
         outs = _tables(_PEAKS_OUTS, n, K, dev)
         ptrs = _PeaksOut(*(outs[name].data_ptr() for name, _ in _PEAKS_OUTS))
         prm = _PeaksParams(n=n, L=L, K=K, distance=int(distance), height=height,
                            prominence=prominence, width=width, rel_height=rel_height)
-        err = lib.wfa_peaks_scan(x_t.data_ptr(), vlen.data_ptr(), ctypes.byref(ptrs),
-                                 ctypes.byref(prm), torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.wfa_peaks_scan(x.data_ptr(), vlen.data_ptr(), ctypes.byref(ptrs),
+                                 ctypes.byref(prm), lay.rows, int(lay.staged), int(lay.vec),
+                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"peaks_scan kernel launch failed: cudaError {err}")
     if n:

@@ -25,6 +25,7 @@ import torch
 from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     _OUTS,
+    SMEM_BYTES,
     _Outs,
     _Params,
     _devices,
@@ -37,7 +38,6 @@ from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
 
 DEFAULT_TILE_ROWS = 8  # events per block: 8 warps, 21 KB of shared memory at L = 256
 MAX_TILE_ROWS = 32  # 1024 threads, the most a block holds
-SMEM_BYTES = 232_448  # shared memory one block can use on the H100
 
 
 def event_smem_bytes(L: int) -> int:

@@ -18,6 +18,8 @@ Semantics, per slot with position p (contract of
 - an empty slot (p < 0 or p >= L) captures no peak value and searches
   nothing: peak_value 0, every index L, every sample 0.
 
+The kernel reads the event-major ``(n, L)`` waves as they are (no
+transposing copy), one warp per event (``chain_scan_cuda.row_layout``).
 On CUDA tensors ``width_crossings_scan`` launches the kernel or raises; on
 CPU tensors it runs ``width_crossings_plain``, the plain PyTorch version
 with exactly these semantics.
@@ -30,7 +32,12 @@ from typing import Dict
 
 import torch
 
-from waveformanalysis_tpu_torch.ops.chain_scan_cuda import _check, _devices, _scan_library
+from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
+    _check,
+    _devices,
+    _scan_library,
+    row_layout,
+)
 
 _IDX_KEYS = ("r_low_idx", "r_high_idx", "f_high_idx", "f_low_idx")
 _Y_KEYS = (
@@ -54,8 +61,8 @@ def _library() -> ctypes.CDLL:
     """Build (at first use) and bind the kernel library."""
     return _scan_library("width_scan", "wfa_width_scan", [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(_WidthOut), ctypes.POINTER(_WidthParams), ctypes.c_void_p,
-    ])
+        ctypes.POINTER(_WidthOut), ctypes.POINTER(_WidthParams)] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p])
 
 
 def width_crossings_plain(
@@ -128,18 +135,20 @@ def width_crossings_scan(
         raise TypeError(f"waves has dtype {waves.dtype}, the kernel takes int16 or float32")
     _check(baseline, "baseline", torch.float32, (n,), dev)
     _check(positions, "positions", torch.int32, (n, K), dev)
+    waves = waves.contiguous()  # event-major, as the caller holds them
+    lay = row_layout(L, waves.element_size(), waves.data_ptr())
     lib = _library()
     with torch.cuda.device(dev):
-        w_t = waves.t().contiguous()  # time-major (L, n) copy on the device
         outs = {key: torch.empty((n, K), dtype=torch.int32 if key in _IDX_KEYS
                                  else torch.float32, device=dev) for key in OUT_KEYS}
         ptrs = _WidthOut(*(outs[key].data_ptr() for key in OUT_KEYS))
         prm = _WidthParams(n=n, L=L, K=K, interpolation=int(bool(interpolation)),
                            rise_low=rise_low, rise_high=rise_high,
                            fall_high=fall_high, fall_low=fall_low)
-        err = lib.wfa_width_scan(w_t.data_ptr(), int(waves.dtype == torch.float32),
+        err = lib.wfa_width_scan(waves.data_ptr(), int(waves.dtype == torch.float32),
                                  baseline.data_ptr(), positions.data_ptr(),
-                                 ctypes.byref(ptrs), ctypes.byref(prm),
+                                 ctypes.byref(ptrs), ctypes.byref(prm), lay.rows,
+                                 int(lay.staged), int(lay.vec),
                                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"width_scan kernel launch failed: cudaError {err}")
