@@ -25,14 +25,19 @@ version on the card, and drives the port's main paths:
   event on the event-major rows) on bench.py's workload, with slice 1's
   JAX counts, then the fused-chain demo (plain, tile and scan chains agree).
 
-The find_peaks (K2) and width-crossing (K4) kernels of slices 2 and 3 run
-one warp per event on the event-major rows as well (slice 5); phase 3
-holds them at K = 32 and on rows read from global memory (L = 65,536).
+The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
+(K4) kernels run one warp per event on the event-major rows as well
+(slices 5 and 6); phase 3 holds them at K = 32 and more, on unaligned
+rows and on rows read from global memory (L = 65,536). Routes A and B also
+check that once get_data returns, no cached table holds a column on the
+card (the filtered waves come back as a host matrix).
 
 Then it times the kernels alone and their plain versions (CUDA events) and
-the Context routes' warm per-run wall time at 65,536 and 1,048,576 events.
+the Context routes' warm per-run wall time at 65,536 and 1,048,576 events
+(route B with and without moving its device columns to the host, in turns).
 
-Each phase prints one line. The last two lines are the kernels' JSON record
+Each phase prints one line (phase 3 one line per kernel). The last two
+lines are the kernels' JSON record
 and ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero
 before those lines; so does a machine without CUDA.
 """
@@ -283,7 +288,7 @@ def standalone_members(ctx) -> set:
 
 def route_phases(ctx) -> dict:
     """The fused executor's and the filter plugin's profiler phases, ms."""
-    keep = ("fusion.single.", "filtered_waveforms.", "plugin.")
+    keep = ("fusion.single.", "filtered_waveforms.", "plugin.", "context.")
     return {k: round(v["total_s"] * 1e3, 1) for k, v in ctx.profiler.stats().items()
             if k.startswith(keep)}
 
@@ -321,6 +326,7 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     from bench import make_batch
     from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.dtypes.table import Table
     from waveformanalysis_tpu_torch.kernels._build import build_all
     from waveformanalysis_tpu_torch.models.full_chain import (
         ChainConfig,
@@ -405,7 +411,14 @@ def main() -> None:
         ("ragged_n_minus_7_L250", ChainConfig(use_derivative=False, peak_height=60.0,
                                               peak_prominence=30.0, peak_width=1.5),
          ragged250_np),
+        # the derivative signal at K = 32 on unaligned rows (element copies)
+        ("derivative_k32_d3_L250", ChainConfig(use_derivative=True, peak_height=20.0,
+                                               peak_prominence=5.0, peak_width=1.0,
+                                               peak_distance=3, max_peaks=32, max_hits=32),
+         ragged250_np),
     ]
+    # one line per kernel: every case's tag, shape and what it found
+    parity = {name: [] for name in max_err}
     for tag, cfg, arrays in chain_cases:
         batch = batch_from_numpy(*arrays, device=dev)
         ref = full_chain_step(*batch, cfg)
@@ -417,14 +430,17 @@ def main() -> None:
             check(fn.launches == before + 1, f"{name} {tag}: kernel not launched")
             err = compare(ref, outs[name], f"{name} {tag}")
             max_err[name] = max(max_err[name], err)
-            print(f"parity {name} {tag} ({batch[0].shape[0]}x{batch[0].shape[1]}): ok, max "
-                  f"|f32 diff| {err:.3g}, peak overflow {int(outs[name]['n_peak_overflow'])}, "
-                  f"labels {np.bincount(outs[name]['label'].cpu().numpy(), minlength=3).tolist()}",
-                  flush=True)
+            parity[name].append(
+                f"{tag} {batch[0].shape[0]}x{batch[0].shape[1]} ({err:.3g}; peak overflow "
+                f"{int(outs[name]['n_peak_overflow'])}, labels "
+                f"{np.bincount(outs[name]['label'].cpu().numpy(), minlength=3).tolist()})")
         ints = [k for k, v in ref.items() if not v.dtype.is_floating_point]
         check(all(torch.equal(outs["chain_tile"][k], outs["chain_scan"][k]) for k in ints),
               f"chain_tile {tag}: integer outputs differ from chain_scan's")
-        print(f"parity chain_tile {tag}: integer outputs {ints} = chain_scan's", flush=True)
+    print(f"parity chain_scan: {len(chain_cases)} cases = full_chain_step (max |f32 diff| in "
+          f"brackets): {'; '.join(parity['chain_scan'])}", flush=True)
+    print(f"parity chain_tile: the same {len(chain_cases)} cases = full_chain_step (max |f32 "
+          f"diff| {max_err['chain_tile']:.3g}), integer outputs {ints} = chain_scan's", flush=True)
     del outs, ref
 
     # detection signals as the hit / hit_threshold device stages form them
@@ -478,9 +494,11 @@ def main() -> None:
         err = compare(ref, out, f"peaks {tag}", ref["valid"].cpu().numpy(), peak_fields)
         max_err["peaks_scan"] = max(max_err["peaks_scan"], err)
         slots_of[tag] = out["position"]
-        print(f"parity peaks_scan {tag} ({sig.shape[0]}x{sig.shape[1]}): ok, "
-              f"{int(ref['valid'].sum())} peaks, {int((ref['n_candidates'] > kw['max_peaks']).sum())}"
-              f" events overflow, max |f32 diff| {err:.3g}", flush=True)
+        parity["peaks_scan"].append(
+            f"{tag} {sig.shape[0]}x{sig.shape[1]} ({err:.3g}; {int(ref['valid'].sum())} peaks, "
+            f"{int((ref['n_candidates'] > kw['max_peaks']).sum())} events overflow)")
+    print(f"parity peaks_scan: {len(peak_cases)} cases = find_peaks_batch (max |f32 diff| in "
+          f"brackets): {'; '.join(parity['peaks_scan'])}", flush=True)
 
     hit_fields = ("position", "height", "integral", "seg_start", "seg_end",
                   "run_start", "run_end")
@@ -489,6 +507,23 @@ def main() -> None:
     sig_edge = sig_rag.clone()
     sig_edge[:, -6:] += 400.0  # runs that reach the wave end
     sig_edge[::3, 40:43] += 400.0
+
+    def run_shapes(sig, vl):
+        """One kind of event in turn: one run over the whole row; runs that
+        straddle the kernel's 32-sample steps; a run still open at the valid
+        length; a comb of runs every third sample (more than 40 runs)."""
+        out = sig.clone()
+        m = out.shape[1]
+        t = torch.arange(m, device=dev)
+        out[0::4] += 400.0
+        out[1::4] += 400.0 * ((t % 32 <= 1) | (t % 32 >= 30)).float()
+        out[2::4] += 400.0 * (t[None, :] >= (vl[2::4, None] - 17)).float()
+        out[3::4] += 400.0 * (t % 3 == 0).float()
+        return out
+
+    sig_shapes = run_shapes(sig_rag, rel)
+    s250_shapes = run_shapes(s250, el250)
+    s_long_shapes = run_shapes(s_long, ell)
     hit_cases = [
         ("bench_thr10_k32", sig_main, torch.full((n,), 10.0, device=dev), vl_main,
          dict(max_hits=32)),
@@ -496,6 +531,14 @@ def main() -> None:
          dict(max_hits=8, left_extension=2, right_extension=3)),
         ("runs_to_boundary_k2", sig_edge, thr_evt, vl_main,
          dict(max_hits=2, left_extension=1, right_extension=4)),
+        ("run_shapes_k1", sig_shapes, thr_evt, rel, dict(max_hits=1)),
+        ("run_shapes_k32", sig_shapes, thr_evt, rel, dict(max_hits=32)),
+        ("run_shapes_k40_ext0_5", sig_shapes, thr_evt, rel,
+         dict(max_hits=40, left_extension=0, right_extension=5)),
+        ("run_shapes_n_minus_7_L250_k32", s250_shapes, thr_evt[: n - 7], el250,
+         dict(max_hits=32)),
+        (f"run_shapes_long_rows_4x{LONG_ROW}_k32", s_long_shapes, bll * 0 + 50.0, ell,
+         dict(max_hits=32)),
     ]
     for tag, sig, thr, vl, kw in hit_cases:
         before = csc.threshold_hits_scan.launches
@@ -505,8 +548,14 @@ def main() -> None:
         ref = threshold_hits_batch(sig, thr, vl, **kw)
         err = compare(ref, out, f"hits {tag}", ref["valid"].cpu().numpy(), hit_fields)
         max_err["hits_scan"] = max(max_err["hits_scan"], err)
-        print(f"parity hits_scan {tag}: ok, {int(ref['valid'].sum())} runs, max run "
-              f"count {int(ref['n_runs'].max())}, max |f32 diff| {err:.3g}", flush=True)
+        lay = csc.row_layout(sig.shape[1], 4, sig.data_ptr(), csc.HIT_SLOT_BYTES)
+        parity["hits_scan"].append(
+            f"{tag} {sig.shape[0]}x{sig.shape[1]} ({err:.3g}; {int(ref['valid'].sum())} runs, max "
+            f"{int(ref['n_runs'].max())}, {int((ref['n_runs'] > kw['max_hits']).sum())} events "
+            f"overflow; staged {lay.staged}, 16-byte {lay.vec})")
+    print(f"parity hits_scan: {len(hit_cases)} cases = threshold_hits_batch (max |f32 diff| in "
+          f"brackets): {'; '.join(parity['hits_scan'])}", flush=True)
+    del sig_shapes, s250_shapes, s_long_shapes
 
     slots = csc.find_peaks_scan(sig_main, valid_length=vl_main, height=80.0,
                                 prominence=50.0, width=2.0, distance=2, max_peaks=32)
@@ -531,8 +580,10 @@ def main() -> None:
         ref = wsc.width_crossings_plain(w, bl, pos, 0.1, 0.9, 0.9, 0.1, interp)
         err = compare(ref, out, f"width {tag}")
         max_err["width_scan"] = max(max_err["width_scan"], err)
-        print(f"parity width_scan {tag} ({w.shape[0]}x{w.shape[1]} {str(w.dtype)[6:]}): ok, "
-              f"{int((pos >= 0).sum())} occupied slots, max |f32 diff| {err:.3g}", flush=True)
+        parity["width_scan"].append(f"{tag} {w.shape[0]}x{w.shape[1]} {str(w.dtype)[6:]} "
+                                    f"({err:.3g}; {int((pos >= 0).sum())} occupied slots)")
+    print(f"parity width_scan: {len(width_cases)} cases = width_crossings_plain (max |f32 diff| "
+          f"in brackets): {'; '.join(parity['width_scan'])}", flush=True)
     del slots, sig_rag, sig_der, sig_edge, slots_of, s250, w250, s_long, wl, dense_sig
     del ragged250_np
 
@@ -555,8 +606,11 @@ def main() -> None:
         check(flc.sosfiltfilt_cuda.launches == before + 1, f"sosfiltfilt {tag}: kernel not launched")
         err = filter_err(flt.sosfiltfilt_plain(x, sos), out, f"sosfiltfilt {tag}")
         max_err["sosfiltfilt"] = max(max_err["sosfiltfilt"], err)
-        print(f"parity sosfiltfilt {tag}: ok, {x.shape[0]} waves, S = {sos.shape[0]}, "
-              f"padlen {flt.sosfiltfilt_padlen(sos)}, max |diff| {err:.3g}", flush=True)
+        parity["sosfiltfilt"].append(f"{tag} {x.shape[0]} waves S={sos.shape[0]} padlen "
+                                     f"{flt.sosfiltfilt_padlen(sos)} ({err:.3g})")
+    print(f"parity sosfiltfilt: {len(filter_cases)} cases = sosfiltfilt_plain within "
+          f"{FILTER_RTOL} of the largest |value| (max |diff| in brackets): "
+          f"{'; '.join(parity['sosfiltfilt'])}", flush=True)
     sos = designs["route_b"]
     b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
     two = flc.sosfiltfilt_cuda(x_main, sos, fused=False)
@@ -700,8 +754,11 @@ def main() -> None:
             names = ("filtered_waveforms",) + MEMBERS
             gpu_tables = {m: ctx.get_data("r", m) for m in names}
             wave = gpu_tables["filtered_waveforms"]["wave"]
-            check(isinstance(wave, torch.Tensor) and wave.device == dev
-                  and wave.dtype == torch.float32, "filtered waves did not stay on the card")
+            check(isinstance(wave, np.ndarray) and wave.dtype == np.float32,
+                  "the cached filtered waves are not a host float32 matrix after get_data")
+            on_card = [key for key, t in ctx._results.items() if isinstance(t, Table) and any(
+                isinstance(v, torch.Tensor) and v.is_cuda for v in t.columns.values())]
+            check(not on_card, f"route {route}: cached tables with columns on the card {on_card}")
             ctx.flush_saves()
 
             t_cpu = time.perf_counter()
@@ -711,10 +768,10 @@ def main() -> None:
             cpu_tables = {m: ctx_cpu.get_data("r", m) for m in names}
             ctx_cpu.flush_saves()
             t_cpu = time.perf_counter() - t_cpu
-            a, b = cpu_tables["filtered_waveforms"]["wave"], wave.cpu()
-            wave_err = float((a.double() - b.double()).abs().max())
+            a, b = np.asarray(cpu_tables["filtered_waveforms"]["wave"]), wave
+            wave_err = float(np.max(np.abs(a.astype(np.float64) - b)))
             if route == "A":
-                ok = bool(torch.isclose(b, a, rtol=SG_RTOL, atol=0).all())
+                ok = bool(np.isclose(b, a, rtol=SG_RTOL, atol=0).all())
             else:
                 ok = wave_err <= BW_WAVE_ATOL
             check(ok, f"route {route}: filtered waves differ from the CPU Context's by {wave_err:.3g}")
@@ -747,19 +804,21 @@ def main() -> None:
 
     # ---- phase 6: kernel times ---------------------------------------------
     # kernels alone on cold inputs (several copies in turn, more bytes than
-    # the 50 MB L2 holds): time-major copies for K1 and K3, the event-major
-    # rows as the caller holds them for K7, K2 and K4; with the plain
-    # versions on the same inputs; slot capacity 32, the plugins' default
-    # and the Context route's
+    # the 50 MB L2 holds): the event-major rows as the caller holds them
+    # (K1-K4, K7), time-major copies for K5/K6; with the plain versions on
+    # the same inputs; slot capacity 32, the plugins' default and the
+    # Context route's
     times, bounds = {}, {}
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib_chain = csc._library()
     lib_tile = ctc._library()
     tile_rows = ctc.rows_per_block(L, ctc.DEFAULT_TILE_ROWS)
-    tile_regs = "; ".join(f"KT={p['function'].split('ILi')[1].split('E')[0]}: "
-                          f"{p.get('registers')} regs, {p.get('spill_stores')}/"
-                          f"{p.get('spill_loads')} B spill st/ld"
-                          for p in built["chain_tile"].ptxas)
+
+    def ptxas(name: str) -> str:
+        return "; ".join(f"{kernel_tag(p['function'])}: {p.get('registers')} regs, "
+                         f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill st/ld"
+                         for p in built[name].ptxas)
+
     lib_peaks = csc._peaks_library()
     lib_hits = csc._hits_library()
     lib_width = wsc._library()
@@ -773,23 +832,22 @@ def main() -> None:
         pol = torch.ones(size, dtype=torch.int8, device=dev)
         thr = torch.full((size,), 10.0, device=dev)
         n_copies = 4 if size == N_EVENTS else 2
-        sig_t = [(sig + k).t().contiguous() for k in range(n_copies)]
-        w_t = [(w + k).t().contiguous() for k in range(n_copies)]
 
         # K1 and K7 in turns: plain, steps, kernels alone, kernels alone,
-        # steps, plain. K1 alone reads time-major copies, K7 alone
-        # event-major ones; each step includes its wrapper (K1's the
-        # transposing copy)
+        # steps, plain; both read the event-major rows, each step includes
+        # its wrapper and the fresh input (w + k); then K1's wrapper step on
+        # the cold copies the kernels read
         outs1 = csc.chain_outputs(size, dev)
         ptrs1 = csc._Outs(*(outs1[name].data_ptr() for name, _ in csc._OUTS))
         prm1 = csc._params(bench_cfg, size, L)
         w_e = [w + k for k in range(n_copies)]
         vec = int(all(x.data_ptr() % 16 == 0 for x in w_e))
+        lay1 = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
 
         def k1(k):
-            err = lib_chain.wfa_chain_scan(w_t[k % n_copies].data_ptr(), el.data_ptr(),
+            err = lib_chain.wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
                                            bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
-                                           ctypes.byref(prm1), stream)
+                                           ctypes.byref(prm1), lay1.rows, int(lay1.vec), stream)
             check(err == 0, f"chain kernel launch failed: cudaError {err}")
 
         def k7(k):
@@ -808,6 +866,7 @@ def main() -> None:
         t_tstep2 = median_ms(lambda k: tile_step(w + k, el, bl + k, pol))
         t_step2 = median_ms(lambda k: step(w + k, el, bl + k, pol))
         t_plain2 = median_ms(lambda k: full_chain_step(w + k, el, bl + k, pol, bench_cfg))
+        t_w1 = median_ms(lambda k: step(w_e[k % n_copies], el, bl, pol))
         times[("chain_scan", size)] = (t_k1, t_plain)
         times[("chain_tile", size)] = (t_k7, t_plain)
         # operations: ~20 per sample in the features / runs / candidate
@@ -821,15 +880,17 @@ def main() -> None:
         print(f"times chain_scan {size}x{L} ({smi}), median ms of 7: plain {t_plain:.3f} / "
               f"{t_plain2:.3f}; make_chain_scan step {t_step:.3f} / {t_step2:.3f} "
               f"({size / t_step * 1e3:.0f} wf/s); kernel alone {t_k1:.3f} / {t_k1b:.3f} "
-              f"({size / t_k1 * 1e3:.0f} wf/s)", flush=True)
+              f"({size / t_k1 * 1e3:.0f} wf/s, {100 * b_ms / t_k1:.2f} % of the {b_ms:.4f} ms "
+              f"bound); wrapper step on the cold copies {t_w1:.3f}; {lay1.rows} events per "
+              f"block, {lay1.smem_bytes} B shared memory, 16-byte copies {lay1.vec}; ptxas "
+              f"{ptxas('chain_scan')}", flush=True)
         print(f"times chain_tile {size}x{L} ({smi}), median ms of 7: make_chain_tile step "
               f"{t_tstep:.3f} / {t_tstep2:.3f} ({size / t_tstep * 1e3:.0f} wf/s) against "
-              f"make_chain_scan step (transposing copy included) {t_step:.3f} / {t_step2:.3f}; "
-              f"kernel alone {t_k7:.3f} / {t_k7b:.3f} ({size / t_k7 * 1e3:.0f} wf/s) against "
-              f"K1 alone {t_k1:.3f} / {t_k1b:.3f}; bound {b_ms:.4f} ms, K7 at "
-              f"{100 * b_ms / t_k7:.2f} %, K1 at {100 * b_ms / t_k1:.2f} %; {tile_rows} events "
-              f"per block, {tile_rows * ctc.event_smem_bytes(L)} B dynamic shared memory per "
-              f"block, 16-byte row loads {bool(vec)}; ptxas {tile_regs}", flush=True)
+              f"make_chain_scan step {t_step:.3f} / {t_step2:.3f}; kernel alone {t_k7:.3f} / "
+              f"{t_k7b:.3f} ({size / t_k7 * 1e3:.0f} wf/s) against K1 alone {t_k1:.3f} / "
+              f"{t_k1b:.3f}; bound {b_ms:.4f} ms, K7 at {100 * b_ms / t_k7:.2f} %; {tile_rows} "
+              f"events per block, {tile_rows * ctc.event_smem_bytes(L)} B dynamic shared memory "
+              f"per block, 16-byte row loads {bool(vec)}; ptxas {ptxas('chain_tile')}", flush=True)
         del outs1, w_e
 
         # K2 (one warp per event on the event-major rows): alone and its
@@ -865,28 +926,37 @@ def main() -> None:
         pos = outs2["position"].clone()
         del outs2, sig_e
 
-        # K3
+        # K3 (one warp per event on the event-major rows): alone and its
+        # wrapper step on the same cold copies
         outs3 = csc._tables(csc._HITS_OUTS, size, K, dev)
         ptrs3 = csc._HitsOut(*(outs3[name].data_ptr() for name, _ in csc._HITS_OUTS))
         prm3 = csc._HitsParams(n=size, L=L, K=K, left_extension=2, right_extension=2)
+        sig_e = [sig + k for k in range(n_copies)]
+        lay3 = csc.row_layout(L, 4, sig_e[0].data_ptr(), csc.HIT_SLOT_BYTES)
 
         def k3(k):
-            err = lib_hits.wfa_hits_scan(sig_t[k % n_copies].data_ptr(), thr.data_ptr(),
-                                         el.data_ptr(), ctypes.byref(ptrs3),
-                                         ctypes.byref(prm3), stream)
+            err = lib_hits.wfa_hits_scan(sig_e[k % n_copies].data_ptr(), thr.data_ptr(),
+                                         el.data_ptr(), ctypes.byref(ptrs3), ctypes.byref(prm3),
+                                         lay3.rows, int(lay3.staged), int(lay3.vec), stream)
             check(err == 0, f"hits kernel launch failed: cudaError {err}")
 
         t_k3 = median_ms(k3)
-        t_w3 = median_ms(lambda k: csc.threshold_hits_scan(sig + k, thr, el, max_hits=K))
+        t_w3 = median_ms(lambda k: csc.threshold_hits_scan(sig_e[k % n_copies], thr, el,
+                                                           max_hits=K))
+        t_k3b = median_ms(k3)
         t_p3 = median_ms(lambda k: threshold_hits_batch(sig + k, thr, el, max_hits=K),
                          iters=5, warmup=1)
         times[("hits_scan", size)] = (t_k3, t_p3)
         bounds[("hits_scan", size)] = bound(nbytes(sig, thr, el, *outs3.values()),
                                             4.0 * size * L)
-        print(f"times hits_scan {size}x{L} K={K} ({smi}): kernel alone {t_k3:.3f} ms, "
-              f"wrapper (with transpose) {t_w3:.3f} ms, plain threshold_hits_batch "
-              f"{t_p3:.3f} ms", flush=True)
-        del outs3, sig_t
+        b3 = bounds[("hits_scan", size)][0]
+        print(f"times hits_scan {size}x{L} K={K} ({smi}): kernel alone {t_k3:.3f} / "
+              f"{t_k3b:.3f} ms ({100 * b3 / t_k3:.2f} % of the {b3:.4f} ms bound), wrapper "
+              f"step {t_w3:.3f} ms, plain threshold_hits_batch {t_p3:.3f} ms; "
+              f"{int(outs3['valid'].sum())} runs; {lay3.rows} events per block, "
+              f"{lay3.smem_bytes} B shared memory, 16-byte copies {lay3.vec}; ptxas "
+              f"{ptxas('hits_scan')}", flush=True)
+        del outs3, sig_e
 
         # K4 on K2's slots (int16 waves, as in the Context route)
         blw = w.float()[:, :50].sum(dim=1) / 50
@@ -921,7 +991,7 @@ def main() -> None:
               f"step {t_w4:.3f} ms, plain width_crossings_plain {t_p4:.3f} ms; "
               f"{int((pos >= 0).sum())} occupied slots; {lay4.rows} events per block, "
               f"{lay4.smem_bytes} B shared memory, 16-byte copies {lay4.vec}", flush=True)
-        del w, sig, w_t, w_e, outs4, pos
+        del w, sig, w_e, outs4, pos
         torch.cuda.empty_cache()
 
     # K5 / K6 alone on pre-transposed, mean-removed inputs (two copies in
@@ -985,10 +1055,6 @@ def main() -> None:
             del ext_t, zi, y_t, xc, mean
         del x
         torch.cuda.empty_cache()
-    for (name, size), (ms, _) in times.items():
-        b_ms, b_by = bounds[(name, size)]
-        print(f"bound {name} {size}x{L}: {b_ms:.4f} ms by {b_by}; kernel at "
-              f"{100 * b_ms / ms:.1f} % of it", flush=True)
 
     # ---- phase 7: the Context route's warm per-run wall time --------------
     # a fresh run id and fresh waves per run (results are cached per run);
@@ -1032,26 +1098,36 @@ def main() -> None:
 
     # routes A and B the same way; each run's waves are one batch per size
     # shifted by the run's index (fresh input without a new batch per run).
-    # The Context's memory cache keeps every run's tables, the filtered
-    # waves on the card among them, so the memory allocated after each run
-    # grows by one filtered matrix; the peak is per run.
+    # When get_data returns, the Context has moved the run's device columns
+    # (the filtered waves) to the host: its own profiler phase
+    # (context.release_device_columns), and the memory allocated after each
+    # run stays flat. Route B also runs in turns without that release (the
+    # columns are moved after the timed call instead), so its cost shows in
+    # the wall: cold, then with, with, without, without, with, with, without.
     for route in ("A", "B"):
         cfg, bl = FILTER_ROUTES[route]
+        order = (True,) * 4 if route == "A" else (True, True, False, False, True, True, False)
         with tempfile.TemporaryDirectory() as tmp:
             ctx = make_route_context(Context, filter_plugins, tmp, "cuda", cfg)
+            release = ctx._release_device_columns
             for size in (N_EVENTS, N_LARGE):
                 base = make_batch(size, L, seed=300 + size % 97)
                 walls, flushes, phases, peaks, held = [], [], [], [], []
-                for i in range(4):
+                for i, released in enumerate(order):
                     rid = f"{route}{size}_{i}"
                     ctx.inject_data(rid, "st_waveforms",
                                     st_waveforms_from_waves(base + np.int16(i), baseline=bl))
                     ctx.profiler.reset()
+                    deferred = []
+                    if not released:
+                        ctx._release_device_columns = lambda keys: deferred.extend(keys) or {}
                     torch.cuda.reset_peak_memory_stats(dev)
                     before = torch.cuda.memory_allocated(dev)
                     t0 = time.perf_counter()
                     res = ctx.get_data(rid, ["s1_s2", "hit_threshold"])
                     walls.append(time.perf_counter() - t0)
+                    ctx._release_device_columns = release
+                    release(deferred)
                     check(len(res["s1_s2"]) > 0, f"route {route} {rid}: no s1_s2 rows")
                     peaks.append((torch.cuda.max_memory_allocated(dev) / 1e9,
                                   (torch.cuda.max_memory_allocated(dev) - before) / 1e9))
@@ -1060,17 +1136,29 @@ def main() -> None:
                     ctx.flush_saves()
                     flushes.append(time.perf_counter() - t0)
                     held.append(torch.cuda.memory_allocated(dev) / 1e9)
-                med = statistics.median(walls[1:])
-                med_ph = {k: round(statistics.median(p.get(k, 0.0) for p in phases[1:]), 1)
-                          for k in phases[1]}
+                    check(not isinstance(ctx.get_data(rid, "filtered_waveforms")["wave"],
+                                         torch.Tensor), f"route {route} {rid}: filtered waves "
+                          f"still on the card after get_data")
+                warm = [i for i in range(1, len(order)) if order[i]]
+                med = statistics.median(walls[i] for i in warm)
+                med_ph = {k: round(statistics.median(phases[i].get(k, 0.0) for i in warm), 1)
+                          for k in phases[warm[0]]}
                 est = (f" (estimate {ROUTE_B_PEAK_ESTIMATE_GB} GB)"
                        if route == "B" and size == N_LARGE else "")
+                turns = ""
+                if route == "B":
+                    kept = [i for i in range(1, len(order)) if not order[i]]
+                    turns = (f"; without the release, in turns: runs "
+                             f"{[round(walls[i] * 1e3, 1) for i in kept]} ms, median "
+                             f"{statistics.median(walls[i] for i in kept) * 1e3:.1f} ms")
                 print(f"route {route} {size}x{L} ({smi}): cold {walls[0]:.3f} s; warm median "
-                      f"of 3 {med * 1e3:.1f} ms = {size / med:.0f} waveforms/s (runs "
-                      f"{[round(x * 1e3, 1) for x in walls[1:]]} ms); phases ms {med_ph}; "
-                      f"flush_saves median {statistics.median(flushes[1:]) * 1e3:.1f} ms; "
+                      f"of {len(warm)} {med * 1e3:.1f} ms = {size / med:.0f} waveforms/s (runs "
+                      f"{[round(walls[i] * 1e3, 1) for i in warm]} ms){turns}; phases ms "
+                      f"{med_ph}; flush_saves median "
+                      f"{statistics.median(flushes[i] for i in warm) * 1e3:.1f} ms; "
                       f"peak device memory per run (max_memory_allocated, and above the "
-                      f"run's start) {[(round(a, 3), round(b, 3)) for a, b in peaks]} GB{est}; "
+                      f"run's start) {sorted({(round(a, 3), round(b, 3)) for a, b in peaks})} "
+                      f"GB{est}; "
                       f"allocated after each run "
                       f"{[round(x, 3) for x in held]} GB", flush=True)
                 del base

@@ -293,8 +293,13 @@ def test_plugin_against_jax(tmp_path, variant):
         assert isinstance(wave, np.ndarray)
         np.testing.assert_array_equal(wave, np.asarray(ref["wave"]))
         return
-    assert isinstance(wave, torch.Tensor) and wave.device == tctx.device  # stays on the device
-    wave, rw = wave.numpy(), np.asarray(ref["wave"])
+    # the plugin filters on the Context's device; the Context hands the
+    # column back on the host once get_data returns, as the JAX plugin does
+    computed = tctx.get_plugin("filtered_waveforms").compute(tctx, "test_run")["wave"]
+    assert isinstance(computed, torch.Tensor) and computed.device == tctx.device
+    assert isinstance(wave, np.ndarray)
+    np.testing.assert_array_equal(wave, computed.numpy())
+    rw = np.asarray(ref["wave"])
     assert wave.dtype == np.float32
     ch = np.asarray(out["channel"])
     for c in (0, 1):

@@ -29,7 +29,7 @@ from waveformanalysis_tpu.ops import widths as jwidths
 from waveformanalysis_tpu_torch.ops import chain_scan_cuda as tscan
 from waveformanalysis_tpu_torch.ops import width_scan_cuda as twscan
 from waveformanalysis_tpu_torch.ops import widths as twidths
-from test_torch_scan_kernels_cuda import peak_cases, tie_batch
+from test_torch_scan_kernels_cuda import hit_cases, peak_cases, tie_batch
 
 ATOL, RTOL = 1e-3, 1e-4
 PEAK_SLOT_FIELDS = ("peak_value", "prominence", "left_ips", "right_ips", "widths",
@@ -184,6 +184,28 @@ def test_threshold_hits_scan_against_xla_contract(case):
                                     torch.as_tensor(vlen), **kw)
     if case == "runs_to_boundary_overflow":
         assert (np.asarray(ref["n_runs"]) > 4).all()
+    _compare(ref, out, HIT_SLOT_FIELDS)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in hit_cases()])
+def test_threshold_hits_scan_warp_cases(case):
+    """The cases the warp-per-event kernel's design turns on (runs that
+    straddle its 32-sample steps, runs open at the valid length, one run
+    over the whole row, a comb of many runs, K = 1, K = 40 in two chunks of
+    slots, L = 250, ragged valid lengths): the plain version against the
+    Pallas kernel in interpret mode up to K = 8, against the XLA contract
+    above (interpret mode compiles the K slot accumulators for minutes)."""
+    _, sig, thr, vlen, kw = next(c for c in hit_cases() if c[0] == case)
+    args = (jnp.asarray(sig), jnp.asarray(thr), jnp.asarray(vlen))
+    if kw["max_hits"] <= 8:
+        ref = jscan.threshold_hits_scan(*args, interpret=True, **kw)
+    else:
+        ref = jhits.threshold_hits_batch(*args, **kw)
+    out = tscan.threshold_hits_scan(torch.as_tensor(sig), torch.as_tensor(thr),
+                                    torch.as_tensor(vlen), **kw)
+    n_runs = np.asarray(ref["n_runs"])
+    assert (n_runs > kw["max_hits"]).any() and n_runs.max() > 32  # slots overflow
+    assert (np.asarray(ref["run_end"])[:, 0] == 0).sum() < len(sig)  # runs were found
     _compare(ref, out, HIT_SLOT_FIELDS)
 
 
@@ -374,3 +396,70 @@ def test_scan_wrappers_take_event_major_rows(monkeypatch):
     twscan.width_crossings_scan(waves, torch.zeros(6), torch.zeros((6, 3), dtype=torch.int32),
                                 0.1, 0.9, 0.9, 0.1)
     assert seen["width"] == (waves.data_ptr(), 0, 8, 1, int(waves.data_ptr() % 16 == 0))
+
+
+def test_row_layout_of_the_chain_and_hit_kernels():
+    """K1's int16 rows with its two slot tables and K3's f32 rows with its
+    run tables: events per block, shared memory, the 16-byte flag and, for
+    K3 only, the switch to rows read from global memory."""
+    chain, hit = tscan.CHAIN_SLOT_BYTES, tscan.HIT_SLOT_BYTES
+    assert (chain, hit) == (512, 256)
+    assert tscan.row_layout(256, 2, 4096, chain) == tscan.RowLayout(
+        rows=8, smem_bytes=8 * (512 + 512), staged=True, vec=True)
+    assert tscan.row_layout(256, 4, 4096, hit) == tscan.RowLayout(
+        rows=8, smem_bytes=8 * (1024 + 256), staged=True, vec=True)
+    assert not tscan.row_layout(250, 2, 4096, chain).vec  # 500-byte rows
+    assert tscan.row_layout(248, 2, 4096, chain).vec
+    assert not tscan.row_layout(250, 4, 4096, hit).vec
+    assert not tscan.row_layout(256, 2, 4098, chain).vec  # an unaligned base
+    # the longest int16 row the chain kernel takes (L < 65536) is staged,
+    # one event per block
+    top = tscan.row_layout(65_535, 2, 0, chain)
+    assert (top.staged, top.rows) == (True, 1) and top.smem_bytes == 131_072 + chain
+    # K3 reads f32 rows of 65,536 samples from global memory, 8 events a block
+    assert tscan.row_layout(65_536, 4, 0, hit) == tscan.RowLayout(
+        rows=8, smem_bytes=8 * hit, staged=False, vec=False)
+    assert tscan.row_layout(tscan.max_staged_length(4, hit), 4, 0, hit).staged
+
+
+def test_chain_and_hits_wrappers_take_event_major_rows(monkeypatch):
+    """chain_scan_cuda and threshold_hits_scan hand their kernels the
+    event-major rows they were given (no transposing copy) with the layout
+    row_layout picks: checked with a stand-in library on CPU tensors posing
+    as CUDA tensors."""
+    seen = {}
+
+    class Lib:
+        def wfa_chain_scan(self, w, el, bl, pol, outs, prm, rows, vec, stream):
+            seen["chain"] = (w, el, rows, vec, prm._obj.L, prm._obj.K)
+            return 0
+
+        def wfa_hits_scan(self, x, thr, vlen, outs, prm, rows, staged, vec, stream):
+            seen["hits"] = (x, thr, rows, staged, vec, prm._obj.L, prm._obj.K)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(tscan, "_library", Lib)
+    monkeypatch.setattr(tscan, "_hits_library", Lib)
+    monkeypatch.setattr(tscan, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    counts = (tscan.chain_scan_cuda.launches, tscan.threshold_hits_scan.launches)
+    for L in (256, 250):
+        waves = torch.zeros((6, L), dtype=torch.int16)
+        el = torch.full((6,), L, dtype=torch.int32)
+        tscan.chain_scan_cuda(waves, el, torch.zeros(6), torch.ones(6, dtype=torch.int8))
+        vec = int(L % 8 == 0 and waves.data_ptr() % 16 == 0)
+        assert seen["chain"] == (waves.data_ptr(), el.data_ptr(), 8, vec, L, 8)
+        sig = torch.zeros((6, L))
+        thr = torch.full((6,), 10.0)
+        tscan.threshold_hits_scan(sig, thr, el, max_hits=40)
+        vec = int(L % 4 == 0 and sig.data_ptr() % 16 == 0)
+        assert seen["hits"] == (sig.data_ptr(), thr.data_ptr(), 8, 1, vec, L, 40)
+    long_sig = torch.zeros((2, 65_536))
+    tscan.threshold_hits_scan(long_sig, torch.zeros(2), torch.zeros(2, dtype=torch.int32))
+    assert seen["hits"][:5] == (long_sig.data_ptr(), seen["hits"][1], 8, 0, 0)
+    assert (tscan.chain_scan_cuda.launches, tscan.threshold_hits_scan.launches) == (
+        counts[0] + 2, counts[1] + 3)

@@ -1,14 +1,16 @@
-"""The find_peaks kernel (K2) and the width-crossing kernel (K4) on the card.
+"""The warp-per-event kernels on the card: the chain (K1), find_peaks (K2),
+threshold hits (K3) and width crossings (K4), and the memory a CUDA
+Context holds across route-B requests.
 
-Both are warp-per-event kernels on the event-major rows. The test holds
-each against its plain PyTorch version on the same CUDA tensors, in every
-row layout the wrappers can pick: 16-byte and element row copies (L = 255
-and 250), rows read from global memory (the long-row mode), and K = 1, 32
-and, for K4, 40 slots. Tolerance:
-integer, index, count and validity outputs exact; float32 outputs atol
-1e-3 / rtol 1e-4, K2's slot values where the slot is valid (the contract,
-as in tests/test_torch_scan_kernels.py). The file imports no JAX, so it
-runs on a machine without it:
+K2, K3 and K4 are held against their plain PyTorch versions on the same
+CUDA tensors in every row layout the wrappers can pick: 16-byte and element
+row copies (L = 256 or 255, and 250), rows read from global memory (the
+long-row mode), and K = 1, 8, 32 and 40 slots (K3 and K4 in chunks of 32).
+K1 is held against ``full_chain_step`` and against the tile chain's (K7)
+integer outputs. Tolerance: integer, index, count, validity and label
+outputs exact; float32 outputs atol 1e-3 / rtol 1e-4, slot values where the
+slot is valid (the contract, as in tests/test_torch_scan_kernels.py). The
+file imports no JAX, so it runs on a machine without it:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_scan_kernels_cuda.py``.
 The batch makers are shared with tests/test_torch_scan_kernels.py.
 """
@@ -20,6 +22,8 @@ import torch
 ATOL, RTOL = 1e-3, 1e-4
 PEAK_SLOT_FIELDS = ("peak_value", "prominence", "left_ips", "right_ips", "widths",
                     "left_bases", "right_bases")
+HIT_SLOT_FIELDS = ("position", "height", "integral", "seg_start", "seg_end",
+                   "run_start", "run_end")
 FRACS = (0.1, 0.9, 0.9, 0.1)
 
 
@@ -49,6 +53,51 @@ def peak_cases():
         ("ties_k32_d1", sig, vl, dict(kw, distance=1)),
         ("ties_k32_d3", sig, vl, dict(kw, distance=3)),
         ("ties_k1_d2", sig, vl, dict(kw, distance=2, max_peaks=1)),
+    ]
+
+
+def hit_batch(n, L, seed):
+    """float32 signals for the threshold-run kernel, one kind of event in
+    turn: noisy pulses; one run over the whole row; a comb of many short
+    runs; runs that straddle the 32-sample steps; a run still open at the
+    valid length. Thresholds per event; ragged valid lengths, some on a
+    multiple of 32."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(L)
+    x = rng.normal(0, 12, (n, L))
+    vl = rng.integers(L // 2, L + 1, n)
+    vl[::7] = (vl[::7] // 32) * 32
+    for i in range(n):
+        kind = i % 5
+        if kind == 0:
+            for c in rng.integers(8, L - 8, 3):
+                x[i] += 150 * np.exp(-((t - c) ** 2) / (2 * rng.uniform(1, 12) ** 2))
+        elif kind == 1:
+            x[i] += 200
+        elif kind == 2:
+            x[i, :: rng.integers(2, 5)] += 200
+        elif kind == 3:
+            for b in range(32, L, 32):
+                x[i, b - rng.integers(1, 4): b + rng.integers(1, 4)] += 200
+        else:
+            x[i, max(vl[i] - rng.integers(1, 40), 0):] += 200
+    thr = rng.uniform(30, 60, n)
+    return x.astype(np.float32), thr.astype(np.float32), vl.astype(np.int32)
+
+
+def hit_cases():
+    """(tag, signal float32 (n, L), thresholds, valid length, keywords)."""
+    x, thr, vl = hit_batch(60, 256, seed=31)
+    x250, thr250, vl250 = hit_batch(60, 250, seed=32)
+    kw = dict(left_extension=2, right_extension=2)
+    return [
+        ("mixed_k8", x, thr, vl, dict(kw, max_hits=8)),
+        ("mixed_k1", x, thr, vl, dict(kw, max_hits=1)),
+        ("mixed_k32_ext0_5", x, thr, vl, dict(left_extension=0, right_extension=5,
+                                                max_hits=32)),
+        ("mixed_k40", x, thr, vl, dict(kw, max_hits=40)),
+        ("unaligned_250_k8", x250, thr250, vl250, dict(kw, max_hits=8)),
+        ("full_length_k32", x, thr, np.full_like(vl, 256), dict(kw, max_hits=32)),
     ]
 
 
@@ -119,3 +168,109 @@ def test_peaks_and_width_kernels_match_plain_on_card():
         torch.cuda.synchronize()
         assert wsc.width_crossings_scan.launches == before + 1
         _same(wsc.width_crossings_plain(wv, b, p, *FRACS, interp), out, f"K4 {tag}")
+
+
+@pytest.mark.cuda
+def test_hits_kernel_matches_plain_on_card():
+    """K3 in each row layout: 16-byte row copies (L = 256), element copies
+    (L = 250), rows read from global memory (65,536 f32 samples), with
+    K = 1, 8, 32 and 40 (two chunks of slots)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
+
+    dev = torch.device("cuda")
+    long_x, long_thr, _ = hit_batch(5, 65_536, seed=33)
+    long_vl = np.array([65_536, 40_000, 65_535, 31, 0], np.int32)
+    cases = hit_cases() + [("long_rows_k32", long_x, long_thr, long_vl,
+                            dict(left_extension=2, right_extension=2, max_hits=32))]
+    layouts = set()
+    for tag, x, thr, vl, kw in cases:
+        s, t, v = (torch.from_numpy(a).to(dev) for a in (x, thr, vl))
+        lay = csc.row_layout(s.shape[1], 4, s.data_ptr(), csc.HIT_SLOT_BYTES)
+        layouts.add((lay.staged, lay.vec))
+        before = csc.threshold_hits_scan.launches
+        out = csc.threshold_hits_scan(s, t, v, **kw)
+        torch.cuda.synchronize()
+        assert csc.threshold_hits_scan.launches == before + 1
+        ref = threshold_hits_batch(s, t, v, **kw)
+        _same(ref, out, f"K3 {tag}", ref["valid"].cpu().numpy(), HIT_SLOT_FIELDS)
+    assert layouts == {(True, True), (True, False), (False, False)}
+
+
+@pytest.mark.cuda
+def test_chain_kernel_matches_plain_and_tile_on_card():
+    """K1 against full_chain_step (integers exact, f32 atol 1e-3 / rtol
+    1e-4) and against K7's integer outputs, on tie-heavy int16 waves with
+    ragged lengths and mixed polarity: the bench config, the derivative
+    signal at K = 32, dense slots at distance 2, L = 250 rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(9)
+    cfgs = {
+        "bench": ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                             peak_width=2.0),
+        "derivative_k32": ChainConfig(use_derivative=True, peak_height=8.0,
+                                      peak_prominence=4.0, peak_width=1.0, peak_distance=3,
+                                      max_peaks=32, max_hits=32),
+        "dense_k32_d2": ChainConfig(use_derivative=False, peak_height=8.0,
+                                    peak_prominence=4.0, peak_width=0.5, peak_distance=2,
+                                    max_peaks=32, max_hits=32, hit_threshold=8.0),
+    }
+    for L in (256, 250):
+        w, vl = tie_batch(1003, L, seed=10 + L)
+        bl = (1000 + rng.integers(-3, 4, 1003)).astype(np.float32)
+        pol = rng.choice(np.array([-1, 0, 1], np.int8), 1003)
+        pol[::4] = 1
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (w, vl, bl, pol))
+        for tag, cfg in cfgs.items():
+            before = csc.chain_scan_cuda.launches
+            out = csc.chain_scan_cuda(*batch, cfg)
+            torch.cuda.synchronize()
+            assert csc.chain_scan_cuda.launches == before + 1
+            ref = full_chain_step(*batch, cfg)
+            _same(ref, out, f"K1 {tag} L={L}")
+            tile = ctc.chain_tile_cuda(*batch, cfg)
+            for k, v in ref.items():
+                if not v.dtype.is_floating_point:
+                    assert torch.equal(out[k], tile[k]), f"K1 != K7: {tag} L={L} {k}"
+
+
+@pytest.mark.cuda
+def test_route_b_memory_held_stays_flat_on_card(tmp_path):
+    """Three route-B requests on a CUDA Context (65,536 x 256 waves): the
+    memory allocated after each does not grow by the filtered float32
+    matrix (67 MB) a run, and the cached filtered waves are a host array."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    import chip_smoke
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.builtin import (
+        basic_features, filtering, hit_finder, peak_finding, s1_s2_classifier,
+        waveform_width)
+    from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
+
+    plugins = (basic_features.BasicFeaturesPlugin, peak_finding.HitFinderPlugin,
+               hit_finder.ThresholdHitPlugin, waveform_width.WaveformWidthPlugin,
+               s1_s2_classifier.S1S2ClassifierPlugin, filtering.FilteredWaveformsPlugin)
+    cfg, bl = chip_smoke.FILTER_ROUTES["B"]
+    ctx = chip_smoke.make_route_context(Context, plugins, str(tmp_path), "cuda", cfg)
+    base = make_batch(65_536, 256, seed=5)
+    held = []
+    for i in range(3):
+        ctx.inject_data(f"r{i}", "st_waveforms",
+                        st_waveforms_from_waves(base + np.int16(i), baseline=bl))
+        ctx.get_data(f"r{i}", ["s1_s2", "hit_threshold"])
+        ctx.flush_saves()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated())
+        assert isinstance(ctx.get_data(f"r{i}", "filtered_waveforms")["wave"], np.ndarray)
+    matrix = 65_536 * 256 * 4
+    assert held[2] - held[0] < matrix, held

@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import logging
 import tempfile
+import threading
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
+import torch
 
 from waveformanalysis_tpu_torch.config.adapter_info import get_adapter_info
 from waveformanalysis_tpu_torch.config.compat import get_default_compat_manager
@@ -43,6 +45,7 @@ from waveformanalysis_tpu_torch.context.config_domain import ConfigDomain
 from waveformanalysis_tpu_torch.context.execution_domain import ExecutionDomain
 from waveformanalysis_tpu_torch.context.resolution import get_plugin_dependencies
 from waveformanalysis_tpu_torch.device import resolve_device
+from waveformanalysis_tpu_torch.dtypes.table import Table
 from waveformanalysis_tpu_torch.foundation.error import ErrorManager
 from waveformanalysis_tpu_torch.foundation.exceptions import ConfigError
 from waveformanalysis_tpu_torch.foundation.profiler import Profiler
@@ -138,6 +141,12 @@ class Context:
         self._results: Dict[Tuple[str, str], Any] = {}
         self._results_lineage: Dict[Tuple[str, str], str] = {}
         self._manual_names: Set[str] = set()
+        # get_data calls in flight (nested ones included: plugins read their
+        # inputs through get_data, possibly from a timeout worker thread) and
+        # the results they stored; see _release_device_columns
+        self._request_lock = threading.Lock()
+        self._request_depth = 0
+        self._request_stored: List[Tuple[str, str]] = []
 
         # performance caches
         self._execution_plan_cache: Dict[str, List[str]] = {}
@@ -423,7 +432,52 @@ class Context:
         "hit_threshold"])`` computes all three in one device program where
         three separate calls would each run alone). Returns a dict
         {name: result} for list targets.
+
+        When the outermost call returns, no table it stored in the memory
+        cache holds a column on the device: the fused program and the
+        standalone plugins read device columns (the filtered waves) inside
+        the call, and afterwards the cache keeps host arrays, as the JAX
+        package's plugins return them.
         """
+        with self._request_lock:
+            self._request_depth += 1
+        try:
+            out = self._get_data(run_id, data_name, **kwargs)
+        finally:
+            with self._request_lock:
+                self._request_depth -= 1
+                stored, outermost = self._request_stored, not self._request_depth
+                if outermost:
+                    self._request_stored = []
+            moved = self._release_device_columns(stored) if outermost else {}
+        if isinstance(out, dict):
+            return {k: moved.get(id(v), v) for k, v in out.items()}
+        return moved.get(id(out), out)
+
+    def _release_device_columns(self, keys: List[Tuple[str, str]]) -> Dict[int, Any]:
+        """Move the device columns of the memory-cached tables under
+        ``keys`` to the host; returns {id(old table): host table}.
+
+        Placed here, at the end of a request, rather than as a byte budget on
+        device-held columns: a budget would still keep a run's filtered waves
+        on the card between requests and leave its size to tune, while every
+        device reader of a column runs inside the request that made it.
+        """
+        moved: Dict[int, Any] = {}
+        if not keys:
+            return moved
+        with self.profiler.time("context.release_device_columns"):
+            for key in dict.fromkeys(keys):
+                data = self._results.get(key)
+                if not isinstance(data, Table) or not any(
+                        isinstance(v, torch.Tensor) for v in data.columns.values()):
+                    continue
+                host = data.to_host()
+                self._results[key] = host
+                moved[id(data)] = host
+        return moved
+
+    def _get_data(self, run_id: str, data_name: Any, **kwargs: Any) -> Any:
         if isinstance(data_name, (list, tuple)):
             return self._get_data_multi(run_id, list(data_name), **kwargs)
         self.config_domain.prepare_request(run_id)
@@ -507,6 +561,9 @@ class Context:
     def _set_data(self, run_id: str, name: str, data: Any) -> None:
         key = (run_id, name)
         self._results[key] = data
+        with self._request_lock:
+            if self._request_depth:
+                self._request_stored.append(key)
         if name in self._plugins:
             self._results_lineage[key] = lineage_json(self.get_lineage(name))
 

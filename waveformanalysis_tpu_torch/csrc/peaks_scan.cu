@@ -14,43 +14,18 @@
 // 1,048,576 x 256 with K = 32, 1.07 GB in and 1.11 GB out, 0.654 ms at
 // 3.35 TB/s. The comparisons per sample are few next to that.
 //
-// Design (warp_rows.cuh). One warp per event reads the event-major (n, L)
-// float32 signal as the caller forms it, with no transposing copy: the row
-// lands in shared memory by cp.async (16 bytes a lane where rows are
-// 16-byte aligned). Then:
+// Design (warp_rows.cuh, warp_peaks.cuh). One warp per event reads the
+// event-major (n, L) float32 signal as the caller forms it, with no
+// transposing copy: the row lands in shared memory by cp.async (16 bytes a
+// lane where rows are 16-byte aligned). Then the passes of warp_peaks.cuh,
+// which the chain kernel (chain_scan.cu) shares: the ballot candidate scan
+// into a per-warp slot table, warp distance pruning (lane k owns slot k),
+// and warp-cooperative base and crossing searches, one kept slot at a time.
+// Lane k then writes slot k of each table: one coalesced 128-byte store per
+// table and event at K = 32.
 //
-//   candidates  32 samples a step, lane j on sample t = base + j: the
-//               difference d[t] = x[t] - x[t - 1], two ballots (d != 0,
-//               d > 0) give each lane the last nonzero difference before t
-//               (its index and direction, which the TPU kernel carries in a
-//               packed cummax), a third the plateau right edges; their
-//               exclusive popcount is the candidate rank. The first K
-//               plateau midpoints land in a per-warp slot table, in order;
-//               the count is not capped.
-//   pruning     lane k owns slot k (K <= 32). Each lane ranks its slot by
-//               priority (value descending, the higher slot first among
-//               equals); the warp walks the ranks in order, the owner
-//               broadcasts its position if it is still kept and the lanes
-//               within `distance` drop themselves: the keep set of
-//               wfa::distance_prune without its one-thread O(K^2) loop.
-//   walks       the left and right bases (nearest higher sample, then the
-//               minimum since it) and the rel-height crossings, in shared
-//               memory: the warp searches one kept slot at a time, 32
-//               samples a step (a ballot for the nearest higher sample or
-//               the crossing, a warp min-reduction with an index tie-break
-//               for the base). Lane k walking slot k serially (K7's walks)
-//               was 46 % slower on the H100 (bench.py's waves, K = 32,
-//               PERF.md): a tall peak's left-base walk runs to the row
-//               start while the other lanes idle.
-//   stores      lane k writes slot k of each table: one coalesced 128-byte
-//               store per table and event at K = 32.
-//
-// Ties (the int16 waves make equal samples common): the left base is the
-// minimum closest to the peak, the right base the first minimum, both walks
-// stop at the first sample strictly higher than the peak, the left crossing
-// is the last sample <= the evaluation height in [lbase, p], the right one
-// the first in [p, rbase]. Samples at or past the event's valid length are
-// never read as signal.
+// warp_peaks.cuh states the tie rules. Samples at or past the event's valid
+// length are never read as signal.
 //
 // Rows longer than shared memory holds (ops/chain_scan_cuda.py row_layout)
 // run the same code with the row read from global memory.
@@ -62,8 +37,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "scan_common.cuh"
-#include "warp_rows.cuh"
+#include "warp_peaks.cuh"
 
 // Mirrored by _PeaksParams / _PeaksOut in ops/chain_scan_cuda.py: keep the
 // field order and types identical.
@@ -88,102 +62,9 @@ struct PeaksOut {
 namespace {
 
 using wfa::kFull;
-using wfa::kInf;
 using wfa::kNeg;
-using wfa::lanes_below;
 
 constexpr int kSlotBytes = 2 * 32 * 4;  // candidate position and value tables
-
-// One slot's prominence bases, rel-height ips and validity.
-struct SlotResult {
-  float prom = 0.0f, lip = 0.0f, rip = 0.0f;
-  int lbase = 0, rbase = 0;
-  bool valid = false;
-};
-
-// ips and validity from the walks' results (the slot owner's arithmetic)
-template <typename X>
-__device__ __forceinline__ SlotResult finish_slot(X x, float v, float lmin, int lbase, float rmin,
-                                                  int rbase, int jl, int jr, float hev,
-                                                  const PeaksParams& P) {
-  SlotResult r;
-  r.prom = v - fmaxf(lmin, rmin);
-  r.lbase = lbase;
-  r.rbase = rbase;
-  r.lip = jl >= 0 ? wfa::left_ips(jl, x(jl), x(jl + 1), hev, lbase) : (float)lbase;
-  r.rip = jr < P.L ? wfa::right_ips(jr, x(jr), x(jr - 1), hev, rbase, P.L) : (float)rbase;
-  r.valid = r.prom >= P.prominence && r.rip - r.lip >= P.width;
-  return r;
-}
-
-// warp walks: slot (p, v) searched by the whole warp, 32 samples a step;
-// every lane returns the same result
-template <typename X>
-__device__ __forceinline__ SlotResult walk_warp(X x, int p, float v, int det_len,
-                                                const PeaksParams& P, int lane) {
-  // nearest higher sample left of p (-1: none), then the minimum over
-  // (jh, p], the one closest to p among equals
-  int jh = -1;
-  for (int hi = p - 1; hi >= 0; hi -= 32) {
-    const int t = hi - lane;
-    const unsigned m = __ballot_sync(kFull, t >= 0 && x(t) > v);
-    if (m) {
-      jh = hi - (__ffs(m) - 1);
-      break;
-    }
-  }
-  float lmin = kInf;
-  int lbase = -1;
-  for (int t = jh + 1 + lane; t <= p; t += 32) {
-    const float xt = x(t);
-    if (xt <= lmin) {  // t rises: the later sample wins a tie
-      lmin = xt;
-      lbase = t;
-    }
-  }
-  wfa::warp_argmin(lmin, lbase, true);
-  // nearest higher sample right of p (det_len: none), then the minimum over
-  // [p, jh), the first among equals
-  jh = det_len;
-  for (int lo = p + 1; lo < det_len; lo += 32) {
-    const int t = lo + lane;
-    const unsigned m = __ballot_sync(kFull, t < det_len && x(t) > v);
-    if (m) {
-      jh = lo + __ffs(m) - 1;
-      break;
-    }
-  }
-  float rmin = kInf;
-  int rbase = 1 << 30;
-  for (int t = p + lane; t < jh; t += 32) {
-    const float xt = x(t);
-    if (xt < rmin) {
-      rmin = xt;
-      rbase = t;
-    }
-  }
-  wfa::warp_argmin(rmin, rbase, false);
-  const float hev = wfa::rel_height_level(v, v - fmaxf(lmin, rmin), P.rel_height);
-  int jl = -1;
-  for (int hi = p; hi >= lbase; hi -= 32) {
-    const int t = hi - lane;
-    const unsigned m = __ballot_sync(kFull, t >= lbase && x(t) <= hev);
-    if (m) {
-      jl = hi - (__ffs(m) - 1);
-      break;
-    }
-  }
-  int jr = P.L;
-  for (int lo = p; lo <= rbase; lo += 32) {
-    const int t = lo + lane;
-    const unsigned m = __ballot_sync(kFull, t <= rbase && x(t) <= hev);
-    if (m) {
-      jr = lo + __ffs(m) - 1;
-      break;
-    }
-  }
-  return finish_slot(x, v, lmin, lbase, rmin, rbase, jl, jr, hev, P);
-}
 
 template <bool kStaged>
 __global__ void __launch_bounds__(256)
@@ -208,76 +89,22 @@ peaks_warp_kernel(const float* __restrict__ x, const int32_t* __restrict__ vlen_
   const int det_len = min(max(vlen_in[ev], 0), L);  // a length above L acts as L
 
   // ---- candidates: plateau midpoints, the first K kept -----------------
-  int count = 0;   // candidates so far (uncapped)
-  int carry = -1;  // the last nonzero difference before this step: 2 t + rise
-  for (int b = 0; b < det_len; b += 32) {
-    const int t = b + lane;
-    const bool in = t >= 1 && t < det_len;
-    const float prev = in ? xs(t - 1) : 0.0f;
-    const float d = in ? xs(t) - prev : 0.0f;
-    const unsigned nz = __ballot_sync(kFull, in && d != 0.0f);
-    const unsigned up = __ballot_sync(kFull, in && d > 0.0f);
-    int ff = carry;
-    const unsigned before = nz & lanes_below(lane);
-    if (before) {
-      const int j = 31 - __clz(before);
-      ff = 2 * (b + j) + (int)(up >> j & 1u);
-    }
-    // a fall after a rise: the plateau [ff / 2, t - 1] ends at t - 1
-    int mid = 0;
-    bool emit = false;
-    if (in && d < 0.0f && ff >= 0 && (ff & 1)) {
-      mid = ((ff >> 1) + t - 1) / 2;
-      emit = mid >= 1 && mid <= det_len - 2 && prev >= P.height;
-    }
-    const unsigned em = __ballot_sync(kFull, emit);
-    if (emit) {
-      const int r = count + __popc(em & lanes_below(lane));
-      if (r < K) {
-        cpos[r] = mid;
-        cval[r] = prev;
-      }
-    }
-    count += __popc(em);
-    if (nz) {
-      const int j = 31 - __clz(nz);
-      carry = 2 * (b + j) + (int)(up >> j & 1u);
-    }
-  }
-  __syncwarp();
+  const int count = wfa::warp_candidates(xs, det_len, K, P.height, cpos, cval, lane);
 
   // ---- lane k owns slot k; greedy distance pruning by priority --------
   const int nc = min(count, K);
   const bool cand = lane < nc;
   const int p = cand ? cpos[lane] : -1;
   const float v = cand ? cval[lane] : kNeg;
-  unsigned keep = __ballot_sync(kFull, cand);
-  if (P.distance > 1 && nc > 1) {
-    // rank: slots of higher priority (a larger value; the higher slot
-    // among equal values)
-    int rank = 0;
-    for (int b = 0; b < nc; ++b) {
-      const float vb = __shfl_sync(kFull, v, b);
-      rank += (vb > v) || (vb == v && b > lane);
-    }
-    bool kept = cand;
-    for (int r = 0; r < nc; ++r) {
-      const unsigned owner = __ballot_sync(kFull, cand && rank == r);
-      if (!owner) continue;
-      const int o = __ffs(owner) - 1;
-      const bool o_kept = __shfl_sync(kFull, (int)kept, o) != 0;
-      const int po = __shfl_sync(kFull, p, o);
-      if (o_kept && lane != o && abs(p - po) < P.distance) kept = false;
-    }
-    keep = __ballot_sync(kFull, kept);
-  }
+  const unsigned keep = wfa::warp_prune(p, v, cand, nc, P.distance, lane);
 
   // ---- per kept slot: bases, evaluation height, interpolated ips -------
-  SlotResult res;
+  const wfa::PeakRule R{L, P.prominence, P.width, P.rel_height};
+  wfa::SlotResult res;
   for (unsigned todo = keep; todo; todo &= todo - 1) {
     const int s = __ffs(todo) - 1;
-    const SlotResult r = walk_warp(xs, __shfl_sync(kFull, p, s), __shfl_sync(kFull, v, s),
-                                   det_len, P, lane);
+    const wfa::SlotResult r = wfa::walk_warp(xs, __shfl_sync(kFull, p, s),
+                                             __shfl_sync(kFull, v, s), det_len, R, lane);
     if (lane == s) res = r;
   }
 

@@ -1,12 +1,13 @@
 // Per-event peak-finding steps shared by the chain kernels (chain_scan.cu,
-// chain_tile.cu) and the find_peaks kernel (peaks_scan.cu), and the chain
-// kernels' parameter and output structs.
+// chain_tile.cu) and the find_peaks kernel (peaks_scan.cu, through
+// warp_peaks.cuh), and the chain kernels' parameter and output structs.
 //
 // Each function is one piece of scipy.signal.find_peaks as the JAX package's
-// ops/peaks.py (find_peaks_batch) defines it, written for one thread that
-// owns one event. Slot tables are register arrays of a compile-time size KT:
-// callers unroll every slot loop so slot indices are constants and the
-// tables stay in registers.
+// ops/peaks.py (find_peaks_batch) defines it: the evaluation height of a
+// width and the interpolated ips, and the one-lane distance pruning the
+// tile chain kernel keeps (its slot tables are register arrays of a
+// compile-time size KT; callers unroll the slot loops so slot indices are
+// constants).
 //
 // Exactness: build with --fmad=false and without fast-math; the products
 // and quotients below use the _rn intrinsics so no contraction or
@@ -49,50 +50,6 @@ namespace wfa {
 
 constexpr float kNeg = -3.0e38f;  // below any float32 signal
 constexpr float kInf = 3.0e38f;
-
-// One step of plateau-aware local-maximum detection on the detection grid.
-// `i` is the grid index of `cur_x`, `prev_x` the value at i - 1. The last
-// nonzero difference's direction and index are carried in prev_rise /
-// left_edge; a fall after a rise emits the plateau midpoint as a candidate
-// (scipy: no peak at the first or last sample, value >= height). The first
-// K candidates land in pos/val in order; `count` counts them all.
-template <int KT>
-__device__ __forceinline__ void candidate_step(int i, float cur_x, float prev_x,
-                                               int det_len, int K, float height,
-                                               int (&pos)[KT], float (&val)[KT],
-                                               int& count, int& left_edge,
-                                               bool& prev_rise) {
-  const float d = cur_x - prev_x;
-  const bool have = i >= 1;
-  if (have && d < 0.0f && prev_rise && i <= det_len - 1) {
-    // left_edge >= 0 and i - 1 >= 0: '/' is the floor division
-    const int m_pt = (left_edge + i - 1) / 2;
-    if (m_pt >= 1 && m_pt <= det_len - 2 && prev_x >= height) {
-#pragma unroll
-      for (int k = 0; k < KT; ++k) {
-        if (k == count && k < K) {
-          pos[k] = m_pt;
-          val[k] = prev_x;
-        }
-      }
-      ++count;
-    }
-  }
-  if (have && d != 0.0f) {
-    prev_rise = d > 0.0f;
-    left_edge = i;
-  }
-}
-
-// Bit k set for each of the first min(count, K) slots.
-template <int KT>
-__device__ __forceinline__ unsigned candidate_mask(int count, int K) {
-  unsigned m = 0u;
-#pragma unroll
-  for (int k = 0; k < KT; ++k)
-    if (k < K && count > k) m |= 1u << k;
-  return m;
-}
 
 // Greedy distance pruning by height priority (higher value first; of two
 // equal values the higher slot, i.e. the later position, wins). Returns the

@@ -1,6 +1,8 @@
 // One warp per event on the event-major (n, L) rows: the row staging and
-// warp helpers shared by the find_peaks kernel (peaks_scan.cu) and the
-// width-crossing kernel (width_scan.cu).
+// warp helpers shared by the warp-per-event kernels: the chain (chain_scan.cu),
+// find_peaks (peaks_scan.cu), threshold hits (hits_scan.cu) and width
+// crossings (width_scan.cu). warp_peaks.cuh and warp_hits.cuh build their
+// passes from these.
 //
 // A block holds `rows` warps, one event each. A warp copies its event's row
 // into its own shared-memory buffer with cp.async, 16 bytes a lane where
@@ -72,6 +74,48 @@ __device__ __forceinline__ void warp_argmin(float& v, int& i, bool later) {
       v = ov;
       i = oi;
     }
+  }
+}
+
+// Warp-wide maximum of (v, i); of equal values the smaller index wins (the
+// first maximum, as np.argmax). Every lane ends with the result.
+__device__ __forceinline__ void warp_argmax(float& v, int& i) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(kFull, v, o);
+    const int oi = __shfl_xor_sync(kFull, i, o);
+    if (ov > v || (ov == v && oi < i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+}
+
+// Butterfly sum: every lane ends with the same value (a + b == b + a).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+
+// First t in [lo, hi) with cond(t) for two conditions at once, 32 samples a
+// step; `hi` = not found. Warp-uniform results.
+template <typename C0, typename C1>
+__device__ __forceinline__ void first_two(int lo, int hi, int lane, C0 c0, C1 c1, int& f0,
+                                          int& f1) {
+  f0 = f1 = hi;
+  for (int b = lo; b < hi; b += 32) {
+    const int t = b + lane;
+    bool a0 = false, a1 = false;
+    if (t < hi) {
+      a0 = c0(t);
+      a1 = c1(t);
+    }
+    const unsigned m0 = __ballot_sync(kFull, a0);
+    const unsigned m1 = __ballot_sync(kFull, a1);
+    if (f0 == hi && m0) f0 = b + __ffs(m0) - 1;
+    if (f1 == hi && m1) f1 = b + __ffs(m1) - 1;
+    if (f0 < hi && f1 < hi) break;
   }
 }
 

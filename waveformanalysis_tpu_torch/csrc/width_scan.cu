@@ -54,28 +54,8 @@ struct WidthOut {
 
 namespace {
 
+using wfa::first_two;
 using wfa::kFull;
-
-// First t in [lo, hi) with cond(t) for two conditions at once, 32 samples a
-// step; `hi` = not found. Warp-uniform results.
-template <typename C0, typename C1>
-__device__ __forceinline__ void first_two(int lo, int hi, int lane, C0 c0, C1 c1, int& f0,
-                                          int& f1) {
-  f0 = f1 = hi;
-  for (int b = lo; b < hi; b += 32) {
-    const int t = b + lane;
-    bool a0 = false, a1 = false;
-    if (t < hi) {
-      a0 = c0(t);
-      a1 = c1(t);
-    }
-    const unsigned m0 = __ballot_sync(kFull, a0);
-    const unsigned m1 = __ballot_sync(kFull, a1);
-    if (f0 == hi && m0) f0 = b + __ffs(m0) - 1;
-    if (f1 == hi && m1) f1 = b + __ffs(m1) - 1;
-    if (f0 < hi && f1 < hi) break;
-  }
-}
 
 template <typename T, bool kStaged>
 __global__ void __launch_bounds__(256)

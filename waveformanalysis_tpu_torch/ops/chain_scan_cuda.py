@@ -8,10 +8,15 @@ Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
   raw per-event candidate/run counts;
 - ``find_peaks_scan`` (``csrc/peaks_scan.cu``): scipy-parity find_peaks,
   the contract of ``ops.peaks.find_peaks_batch`` without a neighbour
-  threshold; one warp per event on the event-major rows (``row_layout``,
-  shared with ``width_crossings_scan``);
+  threshold;
 - ``threshold_hits_scan`` (``csrc/hits_scan.cu``): threshold runs, the
   contract of ``ops.hits.threshold_hits_batch``.
+
+All three kernels run one warp per event on the event-major rows the
+caller formed, with no transposing copy; ``row_layout`` (shared with
+``width_crossings_scan``) gives each its events per block, shared memory and
+row copies, and the chain kernel shares the find_peaks and threshold-run
+passes of the other two (``csrc/warp_peaks.cuh``, ``csrc/warp_hits.cuh``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version named above, which is the contract the
@@ -79,7 +84,8 @@ def _scan_library(name: str, entry: str, argtypes) -> ctypes.CDLL:
 
 def _library() -> ctypes.CDLL:
     return _scan_library("chain_scan", "wfa_chain_scan", [ctypes.c_void_p] * 4 + [
-        ctypes.POINTER(_Outs), ctypes.POINTER(_Params), ctypes.c_void_p,
+        ctypes.POINTER(_Outs), ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
     ])
 
 
@@ -159,17 +165,17 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, to
     check_chain_batch(waves, event_length, baselines, polarity_codes, cfg)
     n, L = waves.shape
     dev = waves.device
+    lay = row_layout(L, 2, waves.data_ptr(), CHAIN_SLOT_BYTES)  # staged: L < 65536
     lib = _library()
     with torch.cuda.device(dev):
-        waves_t = waves.t().contiguous()  # time-major (L, n) copy on the device
         outs = chain_outputs(n, dev)
         ptrs = _Outs(*(outs[name].data_ptr() for name, _ in _OUTS))
         prm = _params(cfg, n, L)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wfa_chain_scan(
-            waves_t.data_ptr(), event_length.data_ptr(), baselines.data_ptr(),
+            waves.data_ptr(), event_length.data_ptr(), baselines.data_ptr(),
             polarity_codes.data_ptr(), ctypes.byref(ptrs), ctypes.byref(prm),
-            stream,
+            lay.rows, int(lay.vec), stream,
         )
     if err != 0:
         raise RuntimeError(f"chain_scan kernel launch failed: cudaError {err}")
@@ -212,12 +218,14 @@ def make_chain_scan(cfg: Optional[ChainConfig] = None):
 
 
 # ---------------------------------------------------------------------------
-# The warp-per-event row layout of K2 and K4 (csrc/warp_rows.cuh)
+# The warp-per-event row layout of K1-K4 (csrc/warp_rows.cuh)
 # ---------------------------------------------------------------------------
 
 SMEM_BYTES = 232_448  # shared memory one block can use on the H100
 ROW_WARPS = 8  # events (warps) per block of the warp-per-event kernels
 PEAK_SLOT_BYTES = 2 * 32 * 4  # K2's per-warp candidate position / value tables
+HIT_SLOT_BYTES = 2 * 32 * 4  # K3's per-warp run start / end tables
+CHAIN_SLOT_BYTES = PEAK_SLOT_BYTES + HIT_SLOT_BYTES  # K1 holds both
 
 
 @dataclass(frozen=True)
@@ -369,8 +377,8 @@ class _HitsOut(ctypes.Structure):
 def _hits_library() -> ctypes.CDLL:
     return _scan_library("hits_scan", "wfa_hits_scan", [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.POINTER(_HitsOut), ctypes.POINTER(_HitsParams), ctypes.c_void_p,
-    ])
+        ctypes.POINTER(_HitsOut), ctypes.POINTER(_HitsParams)] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p])
 
 
 def threshold_hits_scan(
@@ -394,7 +402,7 @@ def threshold_hits_scan(
             signal, thresholds, valid_length, left_extension=left_extension,
             right_extension=right_extension, max_hits=max_hits,
         )
-    x = signal.to(torch.float32)
+    x = signal.to(torch.float32).contiguous()  # event-major, as the caller formed it
     n, L = x.shape
     K = int(max_hits)
     dev = x.device
@@ -404,15 +412,16 @@ def threshold_hits_scan(
     vlen = valid_length.to(torch.int32).contiguous()
     _check(thr, "thresholds", torch.float32, (n,), dev)
     _check(vlen, "valid_length", torch.int32, (n,), dev)
+    lay = row_layout(L, 4, x.data_ptr(), HIT_SLOT_BYTES)
     lib = _hits_library()
     with torch.cuda.device(dev):
-        x_t = x.t().contiguous()  # time-major (L, n) copy on the device
         outs = _tables(_HITS_OUTS, n, K, dev)
         ptrs = _HitsOut(*(outs[name].data_ptr() for name, _ in _HITS_OUTS))
         prm = _HitsParams(n=n, L=L, K=K, left_extension=int(left_extension),
                           right_extension=int(right_extension))
-        err = lib.wfa_hits_scan(x_t.data_ptr(), thr.data_ptr(), vlen.data_ptr(),
-                                ctypes.byref(ptrs), ctypes.byref(prm),
+        err = lib.wfa_hits_scan(x.data_ptr(), thr.data_ptr(), vlen.data_ptr(),
+                                ctypes.byref(ptrs), ctypes.byref(prm), lay.rows,
+                                int(lay.staged), int(lay.vec),
                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"hits_scan kernel launch failed: cudaError {err}")

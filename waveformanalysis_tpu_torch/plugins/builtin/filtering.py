@@ -10,9 +10,11 @@ sg_window_size/sg_poly_order, with per-hardware-channel overrides through
 ``engine="device"`` filters on the Context's device: the wave matrix is
 copied there once, each hardware channel's rows are gathered, filtered (the
 K5 kernel for BW on a CUDA device, the plain PyTorch version on the CPU)
-and scattered into one float32 matrix, and that matrix stays on the device
-as the table's ``wave`` column, where the fused program and the standalone
-plugins read it without a host round trip. Saving the table (when it is a
+and scattered into one float32 matrix, and that matrix is the table's
+``wave`` column on the device, where the fused program and the standalone
+plugins of the same request read it without a host round trip; when the
+outermost ``get_data`` returns, the Context moves it to the host (a NumPy
+float32 matrix, as the JAX plugin returns). Saving the table (when it is a
 target) writes f4 waves that reload as f4. ``engine="scipy"`` is the host
 reference and returns a host column.
 """
