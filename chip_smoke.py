@@ -28,9 +28,14 @@ version on the card, and drives the port's main paths:
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
 (slices 5 and 6); phase 3 holds them at K = 32 and more, on unaligned
-rows and on rows read from global memory (L = 65,536). Routes A and B also
-check that once get_data returns, no cached table holds a column on the
-card (the filtered waves come back as a host matrix).
+rows and on rows read from global memory (L = 65,536). The tile chain (K7)
+runs K1's warp passes on a float32 signal row, and the zero-phase filter
+(K5) reads and writes the event-major rows through a shared-memory tile;
+phase 3 holds K7 on rows too long for that row too, and K5 bit for bit on
+S = 1 to 6, odd n, L = 250, int16 input and rows too long for its tile.
+Routes A and B also check that once get_data returns, no cached table
+holds a column on the card (the filtered waves come back as a host
+matrix).
 
 Then it times the kernels alone and their plain versions (CUDA events) and
 the Context routes' warm per-run wall time at 65,536 and 1,048,576 events
@@ -64,6 +69,7 @@ N_LARGE = 1_048_576  # 512 MB of int16 waves: a real run chunk
 N_ROUTE_REF = 8_192
 WAVE_LEN = 256
 LONG_ROW = 65_536  # K2 / K4 rows too long for shared memory (the long-row mode)
+CHAIN_LONG_ROW = 40_000  # K7 rows too long for its float32 signal row
 ATOL, RTOL = 1e-3, 1e-4  # f32 outputs; ints, indices, counts, labels exact
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W power limit)
@@ -129,8 +135,10 @@ FILTER_DESIGNS = {
     "route_b": (4, 0.002, 0.1, 0.5),
     "config3": (2, 0.1, 0.2, 0.5),  # scripts/benchmark_suite.py:154
     "order3": (3, 0.01, 0.15, 0.5),
+    "order1": (1, 0.01, 0.2, 0.5),
+    "order6": (6, 0.01, 0.2, 0.5),  # two chunks of four sections
 }
-FILTER_RTOL = 1e-6  # K5/K6 vs plain: expected bit-equal (relative to max |ref|)
+FILTER_LONG_ROW = 4_096  # K5 rows too long for its shared-memory tile
 SG_RTOL = 1e-5  # SG on the card vs the CPU (docs/PARITY.md:34)
 BW_WAVE_ATOL = 5e-4  # filtered waves, CUDA vs CPU Context (docs/PARITY.md:34)
 # route B's peak device memory for one 1,048,576 x 256 run, estimated before
@@ -242,6 +250,14 @@ def bound_at(n_bytes: float, n_ops: float, ops_per_s: float) -> tuple:
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sosfiltfilt_ops(L: int, padlen: int, S: int) -> float:
+    """K5's float32 operations per event: 9 per section and sample over the
+    L + 2 padlen samples forward and the L + padlen backward (the backward
+    cascade stops at the first central sample), the mean removal and the DC
+    addition (2 L) and the odd reflection (2 per reflected sample)."""
+    return (2 * L + 3 * padlen) * S * 9.0 + 2 * L + 4 * padlen
+
+
 def check_chain_counts(out: dict, dev, n: int, tag: str) -> str:
     """A chain step's outputs on the device, of shape (n,), finite, with
     bench.py's JAX counts (S1 on even, S2 on odd events, overflows)."""
@@ -270,15 +286,14 @@ def make_route_context(ctx_cls, plugins, storage_dir: str, device: str,
     return ctx
 
 
-def filter_err(ref: torch.Tensor, out: torch.Tensor, tag: str) -> float:
-    """Largest |out - ref| of a filter kernel against its plain version,
-    within FILTER_RTOL of the largest |ref|."""
+def filter_equal(ref: torch.Tensor, out: torch.Tensor, tag: str) -> float:
+    """A filter kernel's output against its plain version's: the same dtype
+    and shape, finite, bit-equal. Returns the largest |out - ref| (0.0)."""
     check(out.dtype == ref.dtype == torch.float32 and out.shape == ref.shape,
           f"{tag}: {out.dtype}{tuple(out.shape)} != {ref.dtype}{tuple(ref.shape)}")
     check(bool(torch.isfinite(out).all()), f"{tag}: non-finite values")
     err = float((out.double() - ref.double()).abs().max())
-    scale = float(ref.abs().max())
-    check(err <= FILTER_RTOL * scale, f"{tag}: max |diff| {err:.3g} > {FILTER_RTOL} x {scale:.3g}")
+    check(torch.equal(out, ref), f"{tag}: not bit-equal (max |diff| {err:.3g})")
     return err
 
 
@@ -319,6 +334,102 @@ def profile_route(ctx, rid: str, tag: str, smi: str) -> None:
           f"{ours}", flush=True)
 
 
+# the device operations that may lie between a channel group's row gather
+# and its scatter in route B: the int16 -> float32 cast, the conditioning's
+# reduction and elementwise ops on contiguous operands, and K5. A transposing
+# copy would show as a strided ``elementwise_kernel``, a transpose or permute
+# kernel, or a device-to-device copy.
+K5_NEIGHBOURS = re.compile(r"(unrolled_elementwise_kernel|vectorized_elementwise_kernel|"
+                           r"reduce_kernel|sosfiltfilt_kernel)<")
+
+
+def route_plugin_classes() -> tuple:
+    """The five S1/S2-cone plugins and FilteredWaveformsPlugin."""
+    from waveformanalysis_tpu_torch.plugins.builtin.basic_features import BasicFeaturesPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.filtering import FilteredWaveformsPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.hit_finder import ThresholdHitPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.peak_finding import HitFinderPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.s1_s2_classifier import S1S2ClassifierPlugin
+    from waveformanalysis_tpu_torch.plugins.builtin.waveform_width import WaveformWidthPlugin
+
+    return (BasicFeaturesPlugin, HitFinderPlugin, ThresholdHitPlugin, WaveformWidthPlugin,
+            S1S2ClassifierPlugin, FilteredWaveformsPlugin)
+
+
+def trace_route_b() -> None:
+    """``--trace-route-b``: one warm route-B run of N_EVENTS events under
+    torch.profiler, as the process's first profiler session. Fails unless
+    the device timeline holds every K5 launch the wrapper counted (one per
+    hardware channel) and, between each channel group's row gather and its
+    scatter, only K5_NEIGHBOURS: no transposing copy around K5."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this trace needs a GPU")
+    sys.path.insert(0, str(ROOT))
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
+
+    cfg, bl = FILTER_ROUTES["B"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = make_route_context(Context, route_plugin_classes(), tmp, "cuda", cfg)
+        for rid, seed in (("warm", 398), ("traced", 399)):
+            ctx.inject_data(rid, "st_waveforms", st_waveforms_from_waves(
+                make_batch(N_EVENTS, WAVE_LEN, seed=seed), baseline=bl))
+        ctx.get_data("warm", ["s1_s2", "hit_threshold"])
+        torch.cuda.synchronize()
+        before = flc.sosfiltfilt_cuda.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ctx.get_data("traced", ["s1_s2", "hit_threshold"])
+            torch.cuda.synchronize()
+        launched = flc.sosfiltfilt_cuda.launches - before
+        ctx.flush_saves()
+    timeline = sorted((e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+                      if str(e.device_type()).endswith("CUDA"))
+    names = [re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
+             for _, name in timeline]
+    k5 = [i for i, name in enumerate(names) if name.startswith("sosfiltfilt_kernel")]
+    check(launched == 2 and len(k5) == launched, f"route B trace: {launched} K5 launches "
+          f"counted, {len(k5)} on the device timeline (expected 2 and 2)")
+    windows = []
+    for i in k5:
+        gathers = [j for j in range(i) if "gather" in names[j]]
+        scatters = [j for j in range(i + 1, len(names))
+                    if names[j].startswith("index_elementwise_kernel")]
+        check(bool(gathers and scatters), f"route B trace: no gather / scatter around the K5 "
+              f"launch at {i}: {[nm[:40] for nm in names[max(i - 6, 0):i + 3]]}")
+        g, sc = gathers[-1], scatters[0]
+        others = [nm[:60] for nm in names[g + 1:sc] if not K5_NEIGHBOURS.match(nm)]
+        check(not others, f"route B trace: between a group's gather and its scatter around "
+              f"K5: {others}")
+        windows.append([nm[:36] for nm in names[g:sc + 1]])
+    print(f"route B trace {N_EVENTS}x{WAVE_LEN}: {len(k5)} K5 launches on the device timeline, "
+          f"{launched} counted; each channel group's gather .. scatter: {windows}; nothing "
+          f"else between them (no transposing copy)", flush=True)
+
+
+def step_ops(fn) -> dict:
+    """One call of fn under torch.profiler: its device operations (name ->
+    (calls, ms)) and the aten operations it dispatched (name -> calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_ops, aten = {}, {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            if e.self_device_time_total > 0:
+                dev_ops[e.key[:60]] = (e.count, round(e.self_device_time_total / 1e3, 3))
+        elif e.key.startswith("aten::"):
+            aten[e.key] = e.count
+    return {"device": dev_ops, "aten": aten}
+
+
 def main() -> None:
     # ---- phase 1: device ---------------------------------------------------
     if not torch.cuda.is_available():
@@ -342,17 +453,10 @@ def main() -> None:
     from waveformanalysis_tpu_torch.ops import width_scan_cuda as wsc
     from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
     from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch
-    from waveformanalysis_tpu_torch.plugins.builtin.basic_features import BasicFeaturesPlugin
-    from waveformanalysis_tpu_torch.plugins.builtin.filtering import FilteredWaveformsPlugin
-    from waveformanalysis_tpu_torch.plugins.builtin.hit_finder import ThresholdHitPlugin
-    from waveformanalysis_tpu_torch.plugins.builtin.peak_finding import HitFinderPlugin
-    from waveformanalysis_tpu_torch.plugins.builtin.s1_s2_classifier import S1S2ClassifierPlugin
-    from waveformanalysis_tpu_torch.plugins.builtin.waveform_width import WaveformWidthPlugin
     from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
 
-    route_plugins = (BasicFeaturesPlugin, HitFinderPlugin, ThresholdHitPlugin,
-                     WaveformWidthPlugin, S1S2ClassifierPlugin)
-    filter_plugins = route_plugins + (FilteredWaveformsPlugin,)
+    filter_plugins = route_plugin_classes()
+    route_plugins = filter_plugins[:5]
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -375,6 +479,11 @@ def main() -> None:
             for p in b.ptxas)
         print(f"build {name}: {b.path.name} in {b.seconds:.1f} s; {regs}", flush=True)
     print(f"build wall {time.perf_counter() - t0:.1f} s", flush=True)
+    # K7's row choice counts the warps an SM holds with TILE_REGISTERS a thread
+    tile_regs = {p.get("registers") for p in built["chain_tile"].ptxas
+                 if "chain_tile_kernel" in p["function"]}
+    check(tile_regs == {ctc.TILE_REGISTERS}, f"chain_tile_kernel uses {tile_regs} registers a "
+          f"thread; ops/chain_tile_cuda.py::TILE_REGISTERS says {ctc.TILE_REGISTERS}")
 
     # ---- phase 3: each kernel against its plain version on the card -------
     n, L = N_EVENTS, WAVE_LEN
@@ -416,6 +525,12 @@ def main() -> None:
                                                peak_prominence=5.0, peak_width=1.0,
                                                peak_distance=3, max_peaks=32, max_hits=32),
          ragged250_np),
+        # rows too long for K7's float32 signal row (it keeps the int16 row)
+        (f"long_rows_L{CHAIN_LONG_ROW}", ChainConfig(use_derivative=False, peak_height=60.0,
+                                                     peak_prominence=30.0, peak_width=1.5,
+                                                     peak_distance=2, max_peaks=32,
+                                                     max_hits=32),
+         ragged_batch(515, CHAIN_LONG_ROW, seed=6)),
     ]
     # one line per kernel: every case's tag, shape and what it found
     parity = {name: [] for name in max_err}
@@ -588,29 +703,40 @@ def main() -> None:
     del ragged250_np
 
     # K5 (zero-phase, one launch) and K6 (one direction, twice in the
-    # two-pass mode) against the plain version on the same card tensors
+    # two-pass mode) against the plain version on the same card tensors:
+    # bit-equal. K5 cases: S = 1 to 6 (two chunks of sections at 6), odd n
+    # (a ragged last 32-event block), L = 250 and 256, int16 and f32 input,
+    # and rows too long for the shared-memory tile (the long-row mode)
     designs = {k: flt.design_butterworth_sos(*v) for k, v in FILTER_DESIGNS.items()}
     x_main = w_main.float()
+    long_w = torch.from_numpy(ragged_batch(2_053, FILTER_LONG_ROW, seed=5)[0]).to(dev)
     filter_cases = [
         ("route_b_bench", designs["route_b"], x_main),
         ("config3_ragged", designs["config3"], rw.float()),
         ("order3_bench", designs["order3"], x_main),
         ("config3_offset_15000", designs["config3"], x_main + 15000.0),
         ("route_b_n_minus_7", designs["route_b"], x_main[: n - 7]),
-        ("order6_two_chunks", flt.design_butterworth_sos(6, 0.01, 0.2, 0.5), x_main),
+        ("order6_two_chunks", designs["order6"], x_main),
+        ("order1_L250_n_minus_7", designs["order1"], x_main[: n - 7, :250].contiguous()),
+        ("order6_L250_n_minus_7", designs["order6"], x_main[: n - 7, :250].contiguous()),
+        ("route_b_int16", designs["route_b"], w_main),
+        (f"route_b_long_rows_{FILTER_LONG_ROW}_int16", designs["route_b"], long_w),
     ]
     for tag, sos, x in filter_cases:
+        padlen = flt.sosfiltfilt_padlen(sos)
+        lay = flc.filter_layout(x.shape[1], padlen)
         before = flc.sosfiltfilt_cuda.launches
         out = flc.sosfiltfilt_cuda(x, sos)
         torch.cuda.synchronize()
         check(flc.sosfiltfilt_cuda.launches == before + 1, f"sosfiltfilt {tag}: kernel not launched")
-        err = filter_err(flt.sosfiltfilt_plain(x, sos), out, f"sosfiltfilt {tag}")
+        err = filter_equal(flt.sosfiltfilt_plain(x, sos), out, f"sosfiltfilt {tag}")
         max_err["sosfiltfilt"] = max(max_err["sosfiltfilt"], err)
-        parity["sosfiltfilt"].append(f"{tag} {x.shape[0]} waves S={sos.shape[0]} padlen "
-                                     f"{flt.sosfiltfilt_padlen(sos)} ({err:.3g})")
-    print(f"parity sosfiltfilt: {len(filter_cases)} cases = sosfiltfilt_plain within "
-          f"{FILTER_RTOL} of the largest |value| (max |diff| in brackets): "
+        parity["sosfiltfilt"].append(f"{tag} {x.shape[0]}x{x.shape[1]} {str(x.dtype)[6:]} "
+                                     f"S={sos.shape[0]} padlen {padlen} "
+                                     f"{'tile' if lay.staged else 'long rows'}")
+    print(f"parity sosfiltfilt: {len(filter_cases)} cases bit-equal to sosfiltfilt_plain: "
           f"{'; '.join(parity['sosfiltfilt'])}", flush=True)
+    del long_w
     sos = designs["route_b"]
     b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
     two = flc.sosfiltfilt_cuda(x_main, sos, fused=False)
@@ -618,11 +744,11 @@ def main() -> None:
     check(flc.sosfilt_cuda.launches == b6 + 2 and flc.sosfiltfilt_cuda.launches == b5,
           "two-pass mode: K6 not launched twice")
     fused = flc.sosfiltfilt_cuda(x_main, sos)
-    err = max(filter_err(fused, two, "sosfilt two-pass vs fused"),
-              filter_err(flt.sosfiltfilt_plain(x_main, sos), two, "sosfilt two-pass vs plain"))
+    err = max(filter_equal(fused, two, "sosfilt two-pass vs fused"),
+              filter_equal(flt.sosfiltfilt_plain(x_main, sos), two, "sosfilt two-pass vs plain"))
     max_err["sosfilt"] = err
-    print(f"parity sosfilt two_pass_route_b: ok, K6 launched twice, max |diff| against "
-          f"K5 and the plain version {err:.3g}", flush=True)
+    print(f"parity sosfilt two_pass_route_b: ok, K6 launched twice, bit-equal to K5 and the "
+          f"plain version", flush=True)
     b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
     short = x_main[:, :20]  # L = 20 <= padlen 27: passes through
     out = flt.sosfiltfilt(short, sos)
@@ -812,11 +938,12 @@ def main() -> None:
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib_chain = csc._library()
     lib_tile = ctc._library()
-    tile_rows = ctc.rows_per_block(L, ctc.DEFAULT_TILE_ROWS)
+    tile = ctc.tile_layout(L, ctc.DEFAULT_TILE_ROWS)
 
     def ptxas(name: str) -> str:
         return "; ".join(f"{kernel_tag(p['function'])}: {p.get('registers')} regs, "
-                         f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill st/ld"
+                         f"{p.get('spill_stores')}/{p.get('spill_loads')} B spill st/ld, "
+                         f"{p.get('static_smem', 0)} B static smem"
                          for p in built[name].ptxas)
 
     lib_peaks = csc._peaks_library()
@@ -853,7 +980,8 @@ def main() -> None:
         def k7(k):
             err = lib_tile.wfa_chain_tile(w_e[k % n_copies].data_ptr(), el.data_ptr(),
                                           bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
-                                          ctypes.byref(prm1), tile_rows, vec, stream)
+                                          ctypes.byref(prm1), tile.rows, vec,
+                                          int(tile.float_row), stream)
             check(err == 0, f"tile chain kernel launch failed: cudaError {err}")
 
         t_plain = median_ms(lambda k: full_chain_step(w + k, el, bl + k, pol, bench_cfg))
@@ -888,9 +1016,10 @@ def main() -> None:
               f"{t_tstep:.3f} / {t_tstep2:.3f} ({size / t_tstep * 1e3:.0f} wf/s) against "
               f"make_chain_scan step {t_step:.3f} / {t_step2:.3f}; kernel alone {t_k7:.3f} / "
               f"{t_k7b:.3f} ({size / t_k7 * 1e3:.0f} wf/s) against K1 alone {t_k1:.3f} / "
-              f"{t_k1b:.3f}; bound {b_ms:.4f} ms, K7 at {100 * b_ms / t_k7:.2f} %; {tile_rows} "
-              f"events per block, {tile_rows * ctc.event_smem_bytes(L)} B dynamic shared memory "
-              f"per block, 16-byte row loads {bool(vec)}; ptxas {ptxas('chain_tile')}", flush=True)
+              f"{t_k1b:.3f}; bound {b_ms:.4f} ms, K7 at {100 * b_ms / t_k7:.2f} %; {tile.rows} "
+              f"events per block, {tile.smem_bytes} B dynamic shared memory per block, float32 "
+              f"signal row {tile.float_row}, 16-byte row loads {bool(vec)}; ptxas "
+              f"{ptxas('chain_tile')}", flush=True)
         del outs1, w_e
 
         # K2 (one warp per event on the event-major rows): alone and its
@@ -994,35 +1123,41 @@ def main() -> None:
         del w, sig, w_e, outs4, pos
         torch.cuda.empty_cache()
 
-    # K5 / K6 alone on pre-transposed, mean-removed inputs (two copies in
-    # turn, each larger than L2), then their wrappers and plain versions on
-    # the event-major waves; route B's design and config 3's
+    # K5 alone on cold event-major f32 copies (two in turn, each larger than
+    # L2) with their conditioning columns, then its wrapper step on the same
+    # copies (the conditioning and the launch) and on int16 copies (the cast
+    # too, as route B hands it the gathered st rows); the plain version on the
+    # same waves. K6 alone on time-major reflected copies, its wrapper and
+    # plain version. Route B's design and config 3's.
     lib_flt = flc._library()
     for size in (N_EVENTS, N_LARGE):
-        x = w_main.repeat(size // n, 1).float()
+        w_e = [w_main.repeat(size // n, 1) + k for k in range(2)]
+        x_e = [w.float() for w in w_e]
         for dname in ("route_b", "config3"):
             sos = designs[dname]
             S, padlen = sos.shape[0], flt.sosfiltfilt_padlen(sos)
             Lp = L + 2 * padlen
             coef = flc.coefficient_table(sos, dev)
-            mean, _ = flt.condition(x, sos)
-            xc = x - mean
-            xc_t = [(xc + k).t().contiguous() for k in range(2)]
-            out_t = torch.empty((L, size), device=dev)
-            ends = torch.empty((2 * padlen, size), device=dev)
+            cond = [flt.condition(x, sos) for x in x_e]
+            lay5 = flc.filter_layout(L, padlen)
+            out5 = torch.empty((size, L), device=dev)
             prm5 = flc._SosParams(n=size, L=L, S=S, padlen=padlen)
 
             def k5(k):
-                err = lib_flt.wfa_sosfiltfilt(xc_t[k % 2].data_ptr(), coef.data_ptr(),
-                                              out_t.data_ptr(), ends.data_ptr(),
-                                              ctypes.byref(prm5), stream)
+                m, d = cond[k % 2]
+                err = lib_flt.wfa_sosfiltfilt(x_e[k % 2].data_ptr(), m.data_ptr(), d.data_ptr(),
+                                              coef.data_ptr(), out5.data_ptr(), None,
+                                              ctypes.byref(prm5), lay5.stride, stream)
                 check(err == 0, f"sosfiltfilt kernel launch failed: cudaError {err}")
 
             t_k5 = median_ms(k5)
-            t_w5 = median_ms(lambda k: flc.sosfiltfilt_cuda(x + k, sos))
-            t_p5 = median_ms(lambda k: flt.sosfiltfilt_plain(x + k, sos), iters=3, warmup=1)
-            del xc_t, out_t, ends
+            t_w5 = median_ms(lambda k: flc.sosfiltfilt_cuda(x_e[k % 2], sos))
+            t_i5 = median_ms(lambda k: flc.sosfiltfilt_cuda(w_e[k % 2], sos))
+            t_k5b = median_ms(k5)
+            t_p5 = median_ms(lambda k: flt.sosfiltfilt_plain(x_e[k % 2], sos), iters=3, warmup=1)
+            xc = x_e[0] - cond[0][0]
             ext_t = [flt.reflect(xc + k, padlen).t().contiguous() for k in range(2)]
+            del xc
             zi = flt._zi_times(sos, ext_t[0][0])
             y_t = torch.empty((Lp, size), device=dev)
             prm6 = flc._SosParams(n=size, L=Lp, S=S, padlen=0)
@@ -1037,23 +1172,35 @@ def main() -> None:
             t_p6 = median_ms(lambda k: flt.sosfilt_plain(ext_t[k % 2], sos, zi),
                              iters=3, warmup=1)
             # bytes: each input read once, each output written once; work:
-            # 9 float32 operations per section and sample and direction, at
-            # the non-FMA rate (the kernels are built with --fmad=false)
-            b5 = bound_at(2 * size * L * 4, 2 * Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
+            # the float32 operations each kernel does (K5: sosfiltfilt_ops,
+            # K6: 9 per section and sample), at the non-FMA rate (the
+            # kernels are built with --fmad=false)
+            b5 = bound_at(nbytes(x_e[0], *cond[0], out5), sosfiltfilt_ops(L, padlen, S) * size,
+                          F32_NONFMA_OPS_PER_S)
             b6 = bound_at(nbytes(ext_t[0], zi, y_t), Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
             if dname == "route_b":  # the kernels' records: route B's design
                 times[("sosfiltfilt", size)], bounds[("sosfiltfilt", size)] = (t_k5, t_p5), b5
                 times[("sosfilt", size)], bounds[("sosfilt", size)] = (t_k6, t_p6), b6
             print(f"times sosfiltfilt {size}x{L} {dname} (S={S}, padlen {padlen}) ({smi}), "
-                  f"median ms: kernel alone {t_k5:.3f} ({size / t_k5 * 1e3:.0f} wf/s), wrapper "
-                  f"(conditioning + transposes) {t_w5:.3f}, plain sosfiltfilt_plain "
-                  f"{t_p5:.3f}; bound {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / t_k5:.1f} %)",
-                  flush=True)
+                  f"median ms: kernel alone {t_k5:.3f} / {t_k5b:.3f} ({size / t_k5 * 1e3:.0f} "
+                  f"wf/s), wrapper step on event-major f32 rows (conditioning + launch) "
+                  f"{t_w5:.3f}, on int16 rows (+ the cast) {t_i5:.3f}, plain sosfiltfilt_plain "
+                  f"{t_p5:.3f}; bound {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / t_k5:.1f} %); "
+                  f"{lay5}; ptxas {ptxas('sosfilt')}", flush=True)
             print(f"times sosfilt {size}x{Lp} {dname} ({smi}), median ms: kernel alone "
                   f"{t_k6:.3f}, wrapper {t_w6:.3f}, plain sosfilt_plain {t_p6:.3f}; bound "
                   f"{b6[0]:.4f} ms by {b6[1]} ({100 * b6[0] / t_k6:.1f} %)", flush=True)
-            del ext_t, zi, y_t, xc, mean
-        del x
+            del ext_t, zi, y_t, cond, out5
+        # the K5 step's own device and aten operations: the conditioning and
+        # the kernel, no transposing copy
+        if size == N_LARGE:
+            ops = step_ops(lambda: flc.sosfiltfilt_cuda(x_e[0], designs["route_b"]))
+            moved = [k for k in ops["aten"] if k in ("aten::t", "aten::transpose",
+                                                     "aten::permute", "aten::copy_")]
+            check(not moved, f"the K5 step on f32 rows ran {moved}")
+            print(f"K5 step ops at {size}x{L} f32 (torch.profiler): device {ops['device']}; "
+                  f"aten {ops['aten']}", flush=True)
+        del w_e, x_e
         torch.cuda.empty_cache()
 
     # ---- phase 7: the Context route's warm per-run wall time --------------
@@ -1168,6 +1315,13 @@ def main() -> None:
                 profile_route(ctx, "prof", f"B {N_EVENTS}x{L}", smi)
             del ctx
         torch.cuda.empty_cache()
+    # route B's K5 launches and their neighbours on the device timeline, in a
+    # process of its own (this process's later profiler sessions drop
+    # records: the profile above shows one of the two K5 launches)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-route-b"],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT)
+    print(proc.stdout.strip(), flush=True)
+    check(proc.returncode == 0, f"route B trace failed: {proc.stderr.strip()[-3000:]}")
 
     # ---- phase 8: guard and records ----------------------------------------
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "waveformanalysis_tpu")
@@ -1209,5 +1363,8 @@ def main() -> None:
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
+    if sys.argv[1:] == ["--trace-route-b"]:
+        trace_route_b()
+        sys.exit(0)
     main()
     print(f"# chip_smoke.py finished in {time.perf_counter() - t0:.1f} s", file=sys.stderr)

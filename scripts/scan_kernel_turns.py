@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
-"""Time the port's warp-per-event scan kernels in turns with an earlier
-one-thread-per-event build of the same kernels, on one NVIDIA GPU.
+"""Time the port's scan kernels in turns with an earlier build of the same
+kernels, on one NVIDIA GPU.
 
-    python3 scripts/scan_kernel_turns.py --parent DIR [--kernels K1,K3]
+    python3 scripts/scan_kernel_turns.py --parent DIR [--kernels K5,K7]
 
 DIR holds an earlier version of ``waveformanalysis_tpu_torch/csrc`` whose
-named kernels take the time-major ``(L, n)`` input, one thread per event,
-with the parameter and output structs this checkout still uses: the
-entries ``wfa_chain_scan(waves_t, el, bl, pol, out, params, stream)`` (K1),
-``wfa_peaks_scan(x_t, vlen, out, params, stream)`` (K2),
-``wfa_hits_scan(x_t, thr, vlen, out, params, stream)`` (K3) and
-``wfa_width_scan(w_t, is_float, baseline, positions, out, params, stream)``
-(K4). Their wrapper step is the transposing copy, the output allocation
-and the launch, as that version's wrappers did.
+named kernels keep the parameter and output structs this checkout uses:
+
+- K1-K4, one thread per event on the time-major ``(L, n)`` input: the
+  entries ``wfa_chain_scan(waves_t, el, bl, pol, out, params, stream)``
+  (K1), ``wfa_peaks_scan(x_t, vlen, out, params, stream)`` (K2),
+  ``wfa_hits_scan(x_t, thr, vlen, out, params, stream)`` (K3) and
+  ``wfa_width_scan(w_t, is_float, baseline, positions, out, params,
+  stream)`` (K4). Their wrapper step is the transposing copy, the output
+  allocation and the launch, as that version's wrappers did;
+- K5, one thread per event on the time-major mean-removed input:
+  ``wfa_sosfiltfilt(x_t, coef, out_t, ends, params, stream)``; its step is
+  that version's wrapper: the conditioning, the transposing subtraction,
+  the launch and the transposing DC addition;
+- K7, the tile chain on the event-major int16 rows:
+  ``wfa_chain_tile(waves, el, bl, pol, out, params, rows, vec, stream)``;
+  its step is the output allocation, the launch and the overflow counts, as
+  this checkout's wrapper does. This checkout's K7 is timed with each of its
+  rows (``float_row`` 1: a float32 signal row beside the int16 one, the
+  wrapper's choice at these lengths; 0: the int16 row alone, its long-row
+  mode), with K1 alone and as a step beside them; then, with each row
+  alone, at the longer L of ``LONG_ROWS``, where ``tile_layout`` picks
+  the row by the warps an SM holds.
 
 On bench.py's waves (``make_batch(65536, 256, seed=0)``, repeated to
-1,048,576 events), with bench.py's chain config (K1) and at K = 32 with the
-route's settings (K2-K4), the script prints per kernel and size, as medians
-of CUDA-event timings over fresh inputs:
+1,048,576 events), with bench.py's chain config (K1, K7), at K = 32 with
+the route's settings (K2-K4) and with route B's Butterworth design (K5),
+the script prints per kernel and size, as medians of CUDA-event timings
+over fresh inputs:
 
 - the kernels alone on cold copies (more bytes than the 50 MB L2 holds):
-  the earlier kernel on time-major copies, this checkout's on event-major
-  ones;
-- the wrapper steps on the same cold copies: the earlier transposing copy,
-  allocation and launch against this checkout's wrapper;
+  the earlier kernel on its layout, this checkout's on event-major rows;
+- the wrapper steps on the same cold copies;
 
 all in turns (earlier, new, new, earlier), in one process on one card.
 """
@@ -42,12 +55,25 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import bound, check, median_ms, nbytes  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    F32_NONFMA_OPS_PER_S,
+    bound,
+    bound_at,
+    check,
+    median_ms,
+    nbytes,
+    sosfiltfilt_ops,
+)
 
 K, L, N_BASE = 32, 256, 65_536
 PEAKS_KW = dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=K)
 FRACS = (0.1, 0.9, 0.9, 0.1)
-SOURCES = {"K1": "chain_scan", "K2": "peaks_scan", "K3": "hits_scan", "K4": "width_scan"}
+SOURCES = {"K1": "chain_scan", "K2": "peaks_scan", "K3": "hits_scan", "K4": "width_scan",
+           "K5": "sosfilt", "K7": "chain_tile"}
+ROUTE_B_DESIGN = (4, 0.002, 0.1, 0.5)  # chip_smoke.FILTER_DESIGNS["route_b"]
+# K7's rows at longer L, 512 MB of int16 waves each: (L, events); tile_layout
+# keeps the float row at 1,024 and drops it at 4,096 (8 warps a block)
+LONG_ROWS = ((1_024, 262_144), (4_096, 65_536))
 
 
 def build_earlier(parent: Path, name: str) -> ctypes.CDLL:
@@ -71,7 +97,7 @@ def in_turns(old_k, new_k, old_step, new_step) -> str:
     s_old, s_new = median_ms(old_step), median_ms(new_step)
     s_new2, s_old2 = median_ms(new_step), median_ms(old_step)
     return (f"alone, earlier {t_old:.3f} / {t_old2:.3f} ms, new {t_new:.3f} / {t_new2:.3f} ms; "
-            f"steps, earlier (copy + kernel) {s_old:.3f} / {s_old2:.3f} ms, new {s_new:.3f} / "
+            f"steps, earlier {s_old:.3f} / {s_old2:.3f} ms, new {s_new:.3f} / "
             f"{s_new2:.3f} ms")
 
 
@@ -81,7 +107,8 @@ def main() -> None:
                     help="directory with the earlier time-major kernel sources")
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
                     help="comma-separated kernels to time: K1 (chain), K2 (find_peaks), "
-                         "K3 (threshold hits), K4 (width crossings)")
+                         "K3 (threshold hits), K4 (width crossings), K5 (zero-phase "
+                         "Butterworth), K7 (tile chain)")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     check(set(kernels) <= set(SOURCES), f"--kernels takes {sorted(SOURCES)}")
@@ -89,6 +116,9 @@ def main() -> None:
     from bench import make_batch
     from waveformanalysis_tpu_torch.models.full_chain import ChainConfig
     from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
     from waveformanalysis_tpu_torch.ops import width_scan_cuda as wsc
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -107,6 +137,11 @@ def main() -> None:
         old["K3"].wfa_hits_scan.argtypes = [ctypes.c_void_p] * 6
     if "K4" in old:
         old["K4"].wfa_width_scan.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+    if "K5" in old:
+        old["K5"].wfa_sosfiltfilt.argtypes = [ctypes.c_void_p] * 6
+    if "K7" in old:
+        old["K7"].wfa_chain_tile.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
     w_base = torch.from_numpy(make_batch(N_BASE, L, seed=0)).to(dev)
     bench_cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
                             peak_width=2.0)
@@ -274,8 +309,178 @@ def main() -> None:
             print(f"K4 {size}x{L} K={K} int16: {in_turns(old_k4, new_k4, old_step4, new_step4)}"
                   f"; bound {b4:.4f} ms; occupied slots {int((pos >= 0).sum())}", flush=True)
             del w_e, w_t, outs4, pos
+        if "K7" in old:
+            bl = torch.full((size,), 1000.0, device=dev)
+            pol = torch.ones(size, dtype=torch.int8, device=dev)
+            w_e = [w + k for k in range(n_copies)]
+            vec = int(all(x.data_ptr() % 16 == 0 for x in w_e))
+            prm7 = csc._params(bench_cfg, size, L)
+            new7 = ctc._library()
+            rows = {"earlier": ctc.DEFAULT_TILE_ROWS}
+            for name, fr in (("int16 row", False), ("float row", True)):
+                rows[name] = min(ctc.DEFAULT_TILE_ROWS,
+                                 csc.SMEM_BYTES // ctc.event_smem_bytes(L, fr))
+
+            def launch7(name, w_ptr, ptrs):
+                if name == "earlier":
+                    return old["K7"].wfa_chain_tile(w_ptr, el.data_ptr(), bl.data_ptr(),
+                                                    pol.data_ptr(), ctypes.byref(ptrs),
+                                                    ctypes.byref(prm7), rows[name], vec, stream)
+                return new7.wfa_chain_tile(w_ptr, el.data_ptr(), bl.data_ptr(), pol.data_ptr(),
+                                           ctypes.byref(ptrs), ctypes.byref(prm7), rows[name],
+                                           vec, int(name == "float row"), stream)
+            lay1 = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
+            new1 = csc._library()
+
+            def tile_step(name):
+                def run(k):
+                    o = csc.chain_outputs(size, dev)
+                    p = csc._Outs(*(o[key].data_ptr() for key, _ in csc._OUTS))
+                    err = launch7(name, w_e[k % n_copies].data_ptr(), p)
+                    check(err == 0, f"{name} tile chain: cudaError {err}")
+                    csc.with_overflow(o, bench_cfg)
+                return run
+
+            outs7 = csc.chain_outputs(size, dev)
+            ptrs7 = csc._Outs(*(outs7[key].data_ptr() for key, _ in csc._OUTS))
+
+            def tile_alone(name):
+                def run(k):
+                    err = launch7(name, w_e[k % n_copies].data_ptr(), ptrs7)
+                    check(err == 0, f"{name} tile chain: cudaError {err}")
+                return run
+
+            def k1_alone(k):
+                err = new1.wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                          bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs7),
+                                          ctypes.byref(prm7), lay1.rows, int(lay1.vec), stream)
+                check(err == 0, f"chain kernel: cudaError {err}")
+
+            order = ("earlier", "int16 row", "float row")
+            alone = {name: [] for name in order + ("K1",)}
+            steps = {name: [] for name in order + ("K1",)}
+            for name in order + ("K1",) + tuple(reversed(order)):
+                alone[name].append(median_ms(k1_alone if name == "K1" else tile_alone(name)))
+            for name in order + ("K1",) + tuple(reversed(order)):
+                steps[name].append(median_ms(
+                    (lambda k: csc.chain_scan_cuda(w_e[k % n_copies], el, bl, pol, bench_cfg))
+                    if name == "K1" else tile_step(name)))
+            b7 = bound(nbytes(w, el, bl, pol, *outs7.values()), 20.0 * size * L)[0]
+            print(f"K7 {size}x{L} bench config, in turns (earlier, int16 row, float row, K1, "
+                  f"float row, int16 row, earlier), ms: alone "
+                  + "; ".join(f"{name} {' / '.join(f'{t:.3f}' for t in alone[name])}"
+                              for name in alone)
+                  + "; steps " + "; ".join(f"{name} {' / '.join(f'{t:.3f}' for t in steps[name])}"
+                                          for name in steps)
+                  + f"; rows per block {rows}; bound {b7:.4f} ms", flush=True)
+            del w_e, outs7
+
+        if "K5" in old:
+            sos = flt.design_butterworth_sos(*ROUTE_B_DESIGN)
+            S, padlen = sos.shape[0], flt.sosfiltfilt_padlen(sos)
+            coef = flc.coefficient_table(sos, dev)
+            x_e = [w.float() + k for k in range(2)]  # cold event-major copies
+            cond = [flt.condition(x, sos) for x in x_e]
+            xc_t = [(x - m).t().contiguous() for x, (m, _) in zip(x_e, cond)]
+            out_t = torch.empty((L, size), device=dev)
+            ends = torch.empty((2 * padlen, size), device=dev)
+            out = torch.empty((size, L), device=dev)
+            prm5 = flc._SosParams(n=size, L=L, S=S, padlen=padlen)
+            lay5 = flc.filter_layout(L, padlen)
+            new5 = flc._library()
+
+            def old_k5(k):
+                err = old["K5"].wfa_sosfiltfilt(xc_t[k % 2].data_ptr(), coef.data_ptr(),
+                                                out_t.data_ptr(), ends.data_ptr(),
+                                                ctypes.byref(prm5), stream)
+                check(err == 0, f"earlier sosfiltfilt kernel: cudaError {err}")
+
+            def new_k5(k):
+                m, d = cond[k % 2]
+                err = new5.wfa_sosfiltfilt(x_e[k % 2].data_ptr(), m.data_ptr(), d.data_ptr(),
+                                           coef.data_ptr(), out.data_ptr(), None,
+                                           ctypes.byref(prm5), lay5.stride, stream)
+                check(err == 0, f"sosfiltfilt kernel: cudaError {err}")
+
+            def old_step5(k):
+                x = x_e[k % 2]
+                m, d = flt.condition(x, sos)
+                xt = torch.sub(x.t(), m.t(), out=torch.empty((L, size), device=dev))
+                ot = torch.empty((L, size), device=dev)
+                en = torch.empty((2 * padlen, size), device=dev)
+                check(old["K5"].wfa_sosfiltfilt(xt.data_ptr(), coef.data_ptr(), ot.data_ptr(),
+                                                en.data_ptr(), ctypes.byref(prm5), stream) == 0,
+                      "earlier sosfiltfilt step")
+                torch.add(ot.t(), d, out=torch.empty((size, L), device=dev))
+
+            def new_step5(k):
+                flc.sosfiltfilt_cuda(x_e[k % 2], sos)
+
+            b5 = bound_at(nbytes(x_e[0], out) + 8 * size, sosfiltfilt_ops(L, padlen, S) * size,
+                          F32_NONFMA_OPS_PER_S)
+            print(f"K5 {size}x{L} route B design (S={S}, padlen {padlen}): "
+                  f"{in_turns(old_k5, new_k5, old_step5, new_step5)}; bound {b5[0]:.4f} ms by "
+                  f"{b5[1]}; tile {lay5}", flush=True)
+            del x_e, cond, xc_t, out_t, ends, out
+
         del w, sig
         torch.cuda.empty_cache()
+
+    if "K7" in old:
+        for L_long, n_long in LONG_ROWS:
+            long_row_turns(make_batch, ctc, csc, bench_cfg, dev, stream, L_long, n_long)
+
+
+def long_row_turns(make_batch, ctc, csc, cfg, dev, stream, L_long: int, n: int) -> None:
+    """This checkout's K7 with each of its rows at a longer L, in turns
+    (int16 row, float row, float row, int16 row), each with the events per
+    block tile_layout gives it, beside the warps an SM holds and the row
+    tile_layout picks."""
+    base = torch.from_numpy(make_batch(8_192, L_long, seed=0)).to(dev)
+    w_e = [base.repeat(n // 8_192, 1) + k for k in range(2)]
+    el = torch.full((n,), L_long, dtype=torch.int32, device=dev)
+    bl = torch.full((n,), 1000.0, device=dev)
+    pol = torch.ones(n, dtype=torch.int8, device=dev)
+    vec = int(L_long % 8 == 0 and all(x.data_ptr() % 16 == 0 for x in w_e))
+    prm = csc._params(cfg, n, L_long)
+    outs = csc.chain_outputs(n, dev)
+    ptrs = csc._Outs(*(outs[key].data_ptr() for key, _ in csc._OUTS))
+    lib = ctc._library()
+    lays = {name: ctc._layout(L_long, ctc.DEFAULT_TILE_ROWS, fr)
+            for name, fr in (("int16 row", False), ("float row", True))}
+    res = {}
+    for name, lay in lays.items():  # the two rows agree on every output
+        check(lib.wfa_chain_tile(w_e[0].data_ptr(), el.data_ptr(), bl.data_ptr(),
+                                 pol.data_ptr(), ctypes.byref(ptrs), ctypes.byref(prm), lay.rows,
+                                 vec, int(lay.float_row), stream) == 0, f"K7 {name}")
+        res[name] = {key: v.clone() for key, v in outs.items()}
+    a, b = res["int16 row"], res["float row"]
+    check(all(torch.equal(a[key], b[key]) for key in outs if not a[key].is_floating_point()),
+          f"K7 at L = {L_long}: the two rows disagree on an integer output")
+    f32_diff = max(float((a[key] - b[key]).abs().max()) for key in outs
+                   if a[key].is_floating_point() and a[key].numel())
+
+    def alone(name):
+        lay = lays[name]
+
+        def run(k):
+            err = lib.wfa_chain_tile(w_e[k % 2].data_ptr(), el.data_ptr(), bl.data_ptr(),
+                                     pol.data_ptr(), ctypes.byref(ptrs), ctypes.byref(prm),
+                                     lay.rows, vec, int(lay.float_row), stream)
+            check(err == 0, f"K7 {name}: cudaError {err}")
+        return run
+
+    times = {name: [] for name in lays}
+    for name in ("int16 row", "float row", "float row", "int16 row"):
+        times[name].append(median_ms(alone(name)))
+    picked = ctc.tile_layout(L_long, ctc.DEFAULT_TILE_ROWS)
+    print(f"K7 {n}x{L_long} bench-shaped waves, alone in turns (int16 row, float row, float "
+          f"row, int16 row), ms: "
+          + "; ".join(f"{name} {' / '.join(f'{t:.3f}' for t in times[name])} ({lay.rows} "
+                      f"events a block, {lay.smem_bytes} B, {ctc.warps_per_sm(lay)} warps an "
+                      f"SM)" for name, lay in lays.items())
+          + f"; integer outputs equal, f32 max |diff| {f32_diff:.3g}; tile_layout picks the "
+          f"{'float' if picked.float_row else 'int16'} row", flush=True)
 
 
 if __name__ == "__main__":

@@ -134,18 +134,102 @@ def test_wrapper_rejects_bad_inputs_before_building(monkeypatch):
     with pytest.raises(ValueError, match="tile_rows"):
         wa.make_chain_tile(cfg, tile_rows=0)
     long_w = torch.zeros((1, ctc.MAX_WAVE_LENGTH + 1), dtype=torch.int16)
-    with pytest.raises(ValueError, match="shared"):
+    with pytest.raises(ValueError, match="L < 65536"):
         ctc._launch(long_w, el[:1], bl[:1], pol[:1], cfg, 8)
 
 
 def test_shared_memory_limits():
-    """One event of MAX_WAVE_LENGTH samples fits a block, one more does
-    not; rows per block drop where tile_rows rows do not fit."""
-    assert ctc.event_smem_bytes(ctc.MAX_WAVE_LENGTH) <= ctc.SMEM_BYTES
-    assert ctc.event_smem_bytes(ctc.MAX_WAVE_LENGTH + 1) > ctc.SMEM_BYTES
-    assert ctc.rows_per_block(256, ctc.DEFAULT_TILE_ROWS) == 8
-    assert ctc.rows_per_block(4096, 8) == ctc.SMEM_BYTES // ctc.event_smem_bytes(4096) < 8
-    assert ctc.rows_per_block(ctc.MAX_WAVE_LENGTH, 32) == 1
+    """K7's layout: per warp the int16 row and, where it is kept, the
+    float32 signal row, each padded to 16 bytes, and four 32-entry slot
+    tables. The float row fits up to MAX_FLOAT_ROW_LENGTH (one event of it
+    fills a block exactly), but is kept only where it leaves as many warps
+    on an SM as the int16 row alone (test below); every L the chain takes
+    (L < 65,536) runs on the int16 row. Rows per block drop where tile_rows
+    rows do not fit, down to one at the longest row."""
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+
+    assert ctc.event_smem_bytes(256, True) == 512 + 1024 + 512
+    assert ctc.event_smem_bytes(256, False) == 512 + 512 == csc.row_layout(
+        256, 2, 0, csc.CHAIN_SLOT_BYTES).smem_bytes // 8  # K1's warp
+    assert ctc.event_smem_bytes(250, True) == 512 + 1008 + 512
+    top = ctc.MAX_FLOAT_ROW_LENGTH
+    assert ctc.event_smem_bytes(top, True) == ctc.SMEM_BYTES
+    assert ctc.event_smem_bytes(top + 1, True) > ctc.SMEM_BYTES
+    assert top > 28_113  # the earlier float32 w / x layout's limit
+    assert ctc._layout(top, 8, True) == ctc.TileLayout(1, True, ctc.SMEM_BYTES)
+    assert ctc.tile_layout(256, ctc.DEFAULT_TILE_ROWS) == ctc.TileLayout(8, True, 8 * 2048)
+    assert ctc.tile_layout(256, 32) == ctc.TileLayout(32, True, 32 * 2048)
+    assert ctc.tile_layout(top, 8) == ctc.TileLayout(
+        2, False, 2 * ctc.event_smem_bytes(top, False))
+    assert ctc.tile_layout(top + 1, 8) == ctc.TileLayout(
+        2, False, 2 * ctc.event_smem_bytes(top + 1, False))
+    assert ctc.tile_layout(20_000, 8).rows == ctc.SMEM_BYTES // ctc.event_smem_bytes(
+        20_000, False) == 5
+    assert ctc.tile_layout(ctc.MAX_WAVE_LENGTH, 32) == ctc.TileLayout(
+        1, False, ctc.event_smem_bytes(65_535, False))
+    assert ctc.MAX_WAVE_LENGTH == 65_535
+    with pytest.raises(ValueError, match="L <= 65535"):
+        ctc.tile_layout(ctc.MAX_WAVE_LENGTH + 1, 8)
+
+
+def test_float_row_kept_only_where_it_keeps_the_warps():
+    """The float32 row costs 4 L bytes of shared memory a warp; K7 keeps it
+    only where the SM still holds as many of its warps as with the int16
+    row alone. With 50 registers a thread (1,792 a warp) an SM holds 36
+    warps, so 8-warp blocks stop at four (32 warps) in both modes up to L =
+    1,108; from 1,109 the float row leaves three blocks (24 warps) against
+    four."""
+    assert ctc.TILE_REGISTERS == 50
+    assert ctc.warps_per_sm(ctc.TileLayout(8, True, 8 * 2048)) == 32  # registers
+    assert ctc.warps_per_sm(ctc.TileLayout(32, True, 32 * 2048)) == 32  # one block
+    assert ctc.warps_per_sm(ctc.TileLayout(1, True, ctc.SMEM_BYTES)) == 1  # shared memory
+    # shared memory: (233,472 bytes) // (block + 1,024) blocks
+    assert ctc.warps_per_sm(ctc.TileLayout(8, False, 69_632)) == 24
+    assert ctc.SM_SMEM_BYTES // (69_632 + ctc.SM_BLOCK_RESERVED) == 3
+    edge = 1_108
+    for L, float_row in ((256, True), (edge, True), (edge + 1, False), (4_096, False)):
+        lay = ctc.tile_layout(L, 8)
+        int16 = ctc._layout(L, 8, False)
+        assert lay.float_row == float_row, L
+        assert ctc.warps_per_sm(lay) == ctc.warps_per_sm(int16) == 32 if L <= edge else 24
+        if not float_row:
+            assert ctc.warps_per_sm(ctc._layout(L, 8, True)) < ctc.warps_per_sm(int16)
+    assert ctc.warps_per_sm(ctc._layout(4_096, 8, True)) == 8  # one 200,704-byte block
+    # 32-warp blocks: one block an SM in both modes while the float row fits 32 rows
+    assert ctc.tile_layout(1_120, 32) == ctc.TileLayout(32, True, 32 * 7_232)
+    assert not ctc.tile_layout(1_120, 1).float_row  # 28 one-warp blocks against 32
+
+
+def test_tile_wrapper_hands_over_the_layout(monkeypatch):
+    """chain_tile_cuda hands K7 the event-major rows it was given (no
+    transposing copy) with tile_layout's rows and row choice: checked with a
+    stand-in library on CPU tensors posing as CUDA tensors."""
+    import contextlib
+
+    seen = {}
+
+    class Lib:
+        def wfa_chain_tile(self, w, el, bl, pol, outs, prm, rows, vec, float_row, stream):
+            seen["tile"] = (w, rows, vec, float_row, prm._obj.L)
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    monkeypatch.setattr(ctc, "_library", Lib)
+    monkeypatch.setattr(ctc, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    before = ctc.chain_tile_cuda.launches
+    for L, rows, float_row in ((256, 8, 1), (250, 3, 1), (40_000, 8, 0)):
+        waves = torch.zeros((4, L), dtype=torch.int16)
+        el = torch.full((4,), L, dtype=torch.int32)
+        ctc.chain_tile_cuda(waves, el, torch.zeros(4), torch.ones(4, dtype=torch.int8),
+                            tile_rows=rows)
+        lay = ctc.tile_layout(L, rows)
+        vec = int(L % 8 == 0 and waves.data_ptr() % 16 == 0)
+        assert seen["tile"] == (waves.data_ptr(), lay.rows, vec, float_row, L)
+    assert ctc.chain_tile_cuda.launches == before + 3
 
 
 def test_fused_chain_demo_on_cpu():

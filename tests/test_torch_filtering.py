@@ -37,9 +37,11 @@ from waveformanalysis_tpu_torch.testing import fixtures as tfix
 
 # (order, lowcut, highcut, fs) in GHz
 DESIGNS = {
+    "order1": (1, 0.01, 0.2, 0.5),  # one section
     "order2": (2, 0.1, 0.2, 0.5),  # scripts/benchmark_suite.py config 3
     "order3": (3, 0.01, 0.15, 0.5),
     "order4": (4, 0.05, 0.22, 0.5),
+    "order6": (6, 0.01, 0.2, 0.5),  # six sections: two chunks of four
     "route_b": (4, 0.002, 0.1, 0.5),
 }
 
@@ -102,6 +104,10 @@ CASES = [  # (design, n, L, offset, relative bound)
     ("order2", 48, 256, 15000.0, 5e-4),  # DC conditioning
     ("order2", 7, 256, 0.0, 5e-5),
     ("order2", 1500, 96, 0.0, 5e-5),
+    # L = 250 (rows that are no multiple of 4 samples) at S = 1, 4 and 6
+    ("order1", 48, 250, 0.0, 5e-5),
+    ("route_b", 48, 250, 0.0, 5e-4),
+    ("order6", 48, 250, 0.0, 5e-4),
 ]
 
 
@@ -165,6 +171,141 @@ def test_short_waves_pass_through_and_1d():
     assert _rel(out, JF.sosfiltfilt_device(wave, sos)) < 5e-4
     with pytest.raises(ValueError, match="padlen"):
         TC.sosfiltfilt_cuda(torch.from_numpy(short), sos)  # the kernel's wrapper raises
+
+
+def test_filter_layout_of_the_zero_phase_kernel():
+    """K5's tile: 32 events (one warp, SOS_TILE_ROWS) per block, each row of
+    L + 2 padlen words made odd, staged while 32 rows fit a block's shared
+    memory (232,448 bytes), the long-row mode (stride 0: rows in a global
+    scratch) beyond. The section count does not enter the layout: the
+    coefficients are read from global memory."""
+    assert TC.SOS_TILE_ROWS == 32
+    assert TC.filter_layout(256, 27) == TC.FilterLayout(
+        stride=311, smem_bytes=32 * 311 * 4)  # route B
+    assert TC.filter_layout(256, 27).staged
+    assert TC.filter_layout(256, 28).stride == 313  # 312 words: made odd
+    assert TC.filter_layout(256, 39) == TC.FilterLayout(335, 32 * 335 * 4)  # S = 6
+    # the limit: 32 rows of 1,815 words (232,320 bytes) fit, of 1,817 do not
+    assert TC.filter_layout(1_761, 27) == TC.FilterLayout(1_815, 232_320)
+    assert TC.filter_layout(1_760, 27) == TC.FilterLayout(1_815, 232_320)
+    assert TC.filter_layout(1_762, 27) == TC.FilterLayout(0, 0)
+    assert not TC.filter_layout(1_762, 27).staged
+    assert TC.filter_layout(4_096, 27) == TC.FilterLayout(0, 0)
+    assert 4 * 32 * 1_817 > TC.SMEM_BYTES == 232_448
+    # five blocks of route B's rows fit an SM's 228 KB (1 KB a block is the
+    # system's)
+    assert 5 * (32 * 311 * 4 + 1024) <= 228 * 1024 < 6 * (32 * 311 * 4 + 1024)
+
+
+def test_zero_phase_kernel_bound_counts_its_operations():
+    """chip_smoke.py's K5 bound counts the float32 operations the kernel
+    does: 9 per section and sample over Lp = L + 2 padlen forward and L +
+    padlen backward (it stops at the first central sample), 2 L for the
+    mean and the DC response, 4 padlen for the reflection. Route B at L =
+    256: 21,968 a event, 0.688 ms at 1,048,576 events at the H100's
+    non-FMA float32 rate."""
+    import chip_smoke
+
+    sos = TF.design_butterworth_sos(*DESIGNS["route_b"])
+    S, padlen = sos.shape[0], TF.sosfiltfilt_padlen(sos)
+    assert (S, padlen) == (4, 27)
+    assert chip_smoke.sosfiltfilt_ops(256, padlen, S) == (310 + 283) * 36 + 512 + 108 == 21_968
+    ms, by = chip_smoke.bound_at(8 * 256 * 2**20 + 8 * 2**20,
+                                 chip_smoke.sosfiltfilt_ops(256, padlen, S) * 2**20,
+                                 chip_smoke.F32_NONFMA_OPS_PER_S)
+    assert by == "operations" and round(ms, 4) == 0.6876
+
+
+@pytest.mark.parametrize("name,between", [
+    ("void at::native::unrolled_elementwise_kernel<at::native::direct_copy_kernel_cuda>", True),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>", True),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor>", True),
+    ("void (anonymous namespace)::sosfiltfilt_kernel<true>(float const*)", True),
+    ("void at::native::elementwise_kernel<128, 4, at::native::gpu_kernel_impl_nocast>", False),
+    ("Memcpy DtoD (Device -> Device)", False),
+    ("void at::native::transpose_kernel<float>", False),
+])
+def test_route_b_trace_admits_no_transposing_copy(name, between):
+    """chip_smoke.py --trace-route-b admits, between a channel group's gather
+    and its scatter, the cast, the conditioning and K5 (contiguous
+    elementwise, reduction), and nothing strided, no transpose and no
+    device-to-device copy."""
+    import re
+
+    import chip_smoke
+
+    short = re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
+    assert bool(chip_smoke.K5_NEIGHBOURS.match(short)) == between
+
+
+def _read_floats(ptr: int, n: int) -> np.ndarray:
+    import ctypes
+
+    return np.ctypeslib.as_array((ctypes.c_float * n).from_address(ptr)).copy()
+
+
+@pytest.mark.parametrize("L,dtype", [(256, torch.float32), (250, torch.float32),
+                                     (256, torch.int16), (4_096, torch.float32)])
+def test_sosfiltfilt_cuda_hands_over_event_major_rows(monkeypatch, L, dtype):
+    """sosfiltfilt_cuda hands K5 the event-major (n, L) rows it was given
+    (a float32 input's own storage; an int16 input cast once), condition()'s
+    mean and DC columns, an (n, L) output, the layout's stride, and a global
+    scratch only in the long-row mode; no (L, n) tensor is made and nothing
+    is transposed. Checked with a stand-in library on CPU tensors posing as
+    CUDA tensors."""
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Lib:
+        def wfa_sosfiltfilt(self, x, mean, dc, coef, out, scratch, prm, stride, stream):
+            P = prm._obj
+            seen.update(x=x, mean=_read_floats(mean, P.n), dc=_read_floats(dc, P.n), out=out,
+                        scratch=scratch, stride=stride, shape=(P.n, P.L, P.S, P.padlen))
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            outs = res if isinstance(res, (tuple, list)) else (res,)
+            ops.append((str(func), [tuple(o.shape) for o in outs if isinstance(o, torch.Tensor)]))
+            return res
+
+    monkeypatch.setattr(TC, "_library", Lib)
+    monkeypatch.setattr(TC, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    sos = TF.design_butterworth_sos(*DESIGNS["route_b"])
+    padlen = TF.sosfiltfilt_padlen(sos)
+    n = 40
+    x = torch.from_numpy(_waves(n, L)).to(dtype)
+    before = TC.sosfiltfilt_cuda.launches
+    with Record():
+        out = TC.sosfiltfilt_cuda(x, sos)
+    assert TC.sosfiltfilt_cuda.launches == before + 1
+    assert out.shape == (n, L) and out.dtype == torch.float32
+    assert seen["out"] == out.data_ptr()
+    if dtype == torch.float32:
+        assert seen["x"] == x.data_ptr()  # the caller's own storage
+    mean, dc = TF.condition(x.to(torch.float32), sos)
+    np.testing.assert_array_equal(seen["mean"], mean[:, 0].numpy())
+    np.testing.assert_array_equal(seen["dc"], dc[:, 0].numpy())
+    lay = TC.filter_layout(L, padlen)
+    assert seen["shape"] == (n, L, 4, padlen) and seen["stride"] == lay.stride
+    assert (seen["scratch"] is None) == lay.staged
+    shapes = [sh for _, outs in ops for sh in outs]
+    names = " ".join(name for name, _ in ops)
+    assert (L, n) not in shapes, ops
+    assert not any(w in names for w in ("transpose", "permute", "aten.t.")), names
+    if not lay.staged:
+        assert (n, L + 2 * padlen) in shapes  # the long-row scratch
 
 
 def test_bandpass_filter_convenience():

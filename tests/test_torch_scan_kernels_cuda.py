@@ -1,15 +1,17 @@
-"""The warp-per-event kernels on the card: the chain (K1), find_peaks (K2),
-threshold hits (K3) and width crossings (K4), and the memory a CUDA
-Context holds across route-B requests.
+"""The hand-written kernels on the card: the chains (K1, K7), find_peaks
+(K2), threshold hits (K3), width crossings (K4) and the zero-phase
+Butterworth filter (K5), and the memory a CUDA Context holds across route-B
+requests.
 
 K2, K3 and K4 are held against their plain PyTorch versions on the same
 CUDA tensors in every row layout the wrappers can pick: 16-byte and element
 row copies (L = 256 or 255, and 250), rows read from global memory (the
 long-row mode), and K = 1, 8, 32 and 40 slots (K3 and K4 in chunks of 32).
-K1 is held against ``full_chain_step`` and against the tile chain's (K7)
-integer outputs. Tolerance: integer, index, count, validity and label
-outputs exact; float32 outputs atol 1e-3 / rtol 1e-4, slot values where the
-slot is valid (the contract, as in tests/test_torch_scan_kernels.py). The
+K1 and K7 are held against ``full_chain_step`` and against each other's
+integer outputs. K5 is held bit for bit against ``sosfiltfilt_plain``.
+Tolerance otherwise: integer, index, count, validity and label outputs
+exact; float32 outputs atol 1e-3 / rtol 1e-4, slot values where the slot is
+valid (the contract, as in tests/test_torch_scan_kernels.py). The
 file imports no JAX, so it runs on a machine without it:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_scan_kernels_cuda.py``.
 The batch makers are shared with tests/test_torch_scan_kernels.py.
@@ -240,6 +242,99 @@ def test_chain_kernel_matches_plain_and_tile_on_card():
             for k, v in ref.items():
                 if not v.dtype.is_floating_point:
                     assert torch.equal(out[k], tile[k]), f"K1 != K7: {tag} L={L} {k}"
+
+
+@pytest.mark.cuda
+def test_tile_chain_matches_plain_and_scan_chain_on_card():
+    """K7 against full_chain_step and K1's integer outputs at K = 8 and
+    K = 32 with distance 2, on tie-heavy int16 waves with ragged lengths and
+    mixed polarity, L = 256 and 250 (the float32 signal row), 1,500 (the
+    int16 row: the float row would leave fewer warps an SM) and 40,000 (too
+    long for the float row), 3..32 events per block."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    cfgs = {
+        "k8_d2": ChainConfig(use_derivative=False, peak_height=16.0, peak_prominence=8.0,
+                             peak_width=1.0, peak_distance=2),
+        "k32_d2": ChainConfig(use_derivative=False, peak_height=8.0, peak_prominence=4.0,
+                              peak_width=0.5, peak_distance=2, max_peaks=32, max_hits=32,
+                              hit_threshold=8.0),
+        "derivative_k32_d2": ChainConfig(use_derivative=True, peak_height=8.0,
+                                         peak_prominence=4.0, peak_width=1.0, peak_distance=2,
+                                         max_peaks=32, max_hits=32),
+    }
+    # L = 1,500 and 40,000: K7 keeps the int16 row alone
+    for L, tile_rows, n in ((256, 8, 1003), (250, 3, 1003), (256, 32, 1003), (1_500, 8, 203),
+                            (40_000, 8, 37)):
+        assert ctc.tile_layout(L, tile_rows).float_row == (L < 1_000)
+        w, vl = tie_batch(n, L, seed=20 + L + tile_rows)
+        bl = (1000 + rng.integers(-3, 4, n)).astype(np.float32)
+        pol = rng.choice(np.array([-1, 0, 1], np.int8), n)
+        batch = tuple(torch.from_numpy(a).to(dev) for a in (w, vl, bl, pol))
+        for tag, cfg in cfgs.items():
+            before = ctc.chain_tile_cuda.launches
+            out = ctc.chain_tile_cuda(*batch, cfg, tile_rows=tile_rows)
+            torch.cuda.synchronize()
+            assert ctc.chain_tile_cuda.launches == before + 1
+            ref = full_chain_step(*batch, cfg)
+            _same(ref, out, f"K7 {tag} L={L} rows={tile_rows}")
+            k1 = csc.chain_scan_cuda(*batch, cfg)
+            for k, v in ref.items():
+                if not v.dtype.is_floating_point:
+                    assert torch.equal(out[k], k1[k]), f"K7 != K1: {tag} L={L} {k}"
+
+
+def filter_batch(n, L, seed):
+    """float32 waves on a 1000 ADC baseline: noise and one pulse per event
+    at a random place, a few events flat (a zero after the mean removal)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(L)
+    c = rng.integers(0, L, n)
+    w = (1000.0 + rng.normal(0, 30, (n, L))
+         + 200 * np.exp(-((t[None, :] - c[:, None]) ** 2) / 50.0))
+    w[::17] = 1000.0
+    return w.astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_sosfiltfilt_kernel_bit_equal_to_plain_on_card():
+    """K5 = sosfiltfilt_plain bit for bit: odd n (a ragged last 32-event
+    block), L = 250 and 256, S = 1, 4 and 6 (two chunks of four sections),
+    an int16 input (the wrapper casts), and rows too long for the
+    shared-memory tile (the long-row mode)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
+
+    dev = torch.device("cuda")
+    designs = {"S1": (1, 0.01, 0.2, 0.5), "S4": (4, 0.002, 0.1, 0.5),
+               "S6": (6, 0.01, 0.2, 0.5)}
+    x256 = torch.from_numpy(filter_batch(1001, 256, seed=40)).to(dev)
+    x250 = torch.from_numpy(filter_batch(1001, 250, seed=41)).to(dev)
+    long_x = torch.from_numpy(filter_batch(67, 3000, seed=42)).to(dev)
+    cases = [(f"{d}_L256", d, x256) for d in designs] + [
+        (f"{d}_L250", d, x250) for d in designs] + [
+        ("S4_int16", "S4", torch.round(x256).to(torch.int16)),
+        ("S4_long_rows", "S4", long_x), ("S6_long_rows", "S6", long_x)]
+    modes = set()
+    for tag, d, x in cases:
+        sos = flt.design_butterworth_sos(*designs[d])
+        modes.add(flc.filter_layout(x.shape[1], flt.sosfiltfilt_padlen(sos)).staged)
+        before = flc.sosfiltfilt_cuda.launches
+        out = flc.sosfiltfilt_cuda(x, sos)
+        torch.cuda.synchronize()
+        assert flc.sosfiltfilt_cuda.launches == before + 1, tag
+        ref = flt.sosfiltfilt_plain(x, sos)
+        assert out.dtype == torch.float32 and out.shape == x.shape, tag
+        assert torch.equal(out, ref), (tag, float((out - ref).abs().max()))
+    assert modes == {True, False}
 
 
 @pytest.mark.cuda

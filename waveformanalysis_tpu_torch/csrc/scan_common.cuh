@@ -1,13 +1,10 @@
 // Per-event peak-finding steps shared by the chain kernels (chain_scan.cu,
-// chain_tile.cu) and the find_peaks kernel (peaks_scan.cu, through
-// warp_peaks.cuh), and the chain kernels' parameter and output structs.
+// chain_tile.cu) and the find_peaks kernel (peaks_scan.cu), all through
+// warp_peaks.cuh, and the chain kernels' parameter and output structs.
 //
 // Each function is one piece of scipy.signal.find_peaks as the JAX package's
 // ops/peaks.py (find_peaks_batch) defines it: the evaluation height of a
-// width and the interpolated ips, and the one-lane distance pruning the
-// tile chain kernel keeps (its slot tables are register arrays of a
-// compile-time size KT; callers unroll the slot loops so slot indices are
-// constants).
+// width and the interpolated ips.
 //
 // Exactness: build with --fmad=false and without fast-math; the products
 // and quotients below use the _rn intrinsics so no contraction or
@@ -50,36 +47,6 @@ namespace wfa {
 
 constexpr float kNeg = -3.0e38f;  // below any float32 signal
 constexpr float kInf = 3.0e38f;
-
-// Greedy distance pruning by height priority (higher value first; of two
-// equal values the higher slot, i.e. the later position, wins). Returns the
-// surviving subset of cand_valid.
-template <int KT>
-__device__ __forceinline__ unsigned distance_prune(const int (&pos)[KT],
-                                                   const float (&val)[KT],
-                                                   unsigned cand_valid,
-                                                   int distance) {
-  if (distance <= 1 || !cand_valid) return cand_valid;
-  int order[KT];
-  int lpos[KT];
-#pragma unroll
-  for (int a = 0; a < KT; ++a) {
-    int r = 0;
-#pragma unroll
-    for (int b = 0; b < KT; ++b)
-      if (b != a) r += (val[b] > val[a]) || (val[b] == val[a] && b > a);
-    order[r] = a;
-    lpos[a] = pos[a];
-  }
-  unsigned keep = cand_valid;
-  for (int r = 0; r < KT; ++r) {
-    const int a = order[r];
-    if (!((cand_valid & keep) >> a & 1u)) continue;
-    for (int b = 0; b < KT; ++b)
-      if (b != a && abs(lpos[b] - lpos[a]) < distance) keep &= ~(1u << b);
-  }
-  return cand_valid & keep;
-}
 
 // Evaluation height of the width: value - prominence * rel_height.
 __device__ __forceinline__ float rel_height_level(float val, float prom,

@@ -3,14 +3,14 @@
 // Replaces two TPU kernels of waveformanalysis_tpu/ops/filter_pallas.py:
 //
 // - wfa_sosfiltfilt (K5) replaces _sosfiltfilt_fused_kernel (:125): scipy's
-//   sosfiltfilt of a mean-removed float32 batch in one launch. scipy's odd
-//   reflection by index arithmetic (Lp = L + 2*padlen):
-//     ext[t] = 2*x[0] - x[padlen - t]                 for t < padlen,
-//     ext[t] = x[t - padlen]                          in the middle,
-//     ext[t] = 2*x[L-1] - x[2*(L-1) + padlen - t]     for t >= padlen + L;
-//   the forward cascade over ext from z = zi * ext[0], the backward cascade
-//   over the forward output in reverse from z = zi * y_fwd[Lp-1]; only the
-//   central L samples are kept.
+//   sosfiltfilt of a float32 batch in one launch, with the Pallas path's
+//   conditioning: the per-wave mean is subtracted as a row is staged and
+//   the DC response mean * H(1)^2 added as it is stored (the wrapper's
+//   ops/filtering.py::condition computes both columns). scipy's odd
+//   reflection by index arithmetic (Lp = L + 2*padlen), the forward cascade
+//   over it from z = zi * ext[0], the backward cascade over the forward
+//   output in reverse from z = zi * y_fwd[Lp-1]; only the central L samples
+//   are kept.
 // - wfa_sosfilt (K6) replaces _sosfilt_kernel (:50): one cascade in one
 //   direction over a time-major input with a per-event initial state.
 //
@@ -20,32 +20,46 @@
 // and sum rounds once, as in the plain PyTorch version
 // (ops/filtering.py: sosfilt_plain, sosfiltfilt_plain), so the two agree bit
 // for bit. Coefficients come as float32 rows (b0, b1, b2, a1, a2, zi0, zi1),
-// normalised by a0 and rounded once on the host.
+// normalised by a0 and rounded once on the host. The sections run in chunks
+// of up to four, templated and unrolled, their 2 * 4 state values and
+// coefficients in registers; a cascade of more than four sections runs its
+// chunks one after another over the whole sequence, in place (the same
+// operations on the same values), so every section count runs.
 //
-// Design. One thread per event over the time-major (L, n) layout the wrapper
-// makes, so a warp reads and writes one coalesced 128-byte line per step.
-// The sections run in chunks of up to four, templated and unrolled, their
-// 2 * 4 state values and coefficients in registers. A cascade of more than
-// four sections runs its chunks one after another over the whole sequence,
-// in place; that is the same operations on the same values, so every section
-// count runs. K5 keeps the forward output's central samples in the output
-// array and its 2*padlen reflected ends in a small (2*padlen, n) scratch; the
-// backward pass reads them in reverse and overwrites the centre in place
-// (each thread owns its column). No padding of n: the last block masks its
-// ragged tail.
+// K5's design. The recursion is serial per event (a parallel scan would not
+// be bit-equal to the plain version), so one thread filters one event. A
+// block is one warp and 32 events, whose event-major rows lie back to back
+// in the (n, L) input: the warp copies them with cp.async, 32 consecutive
+// samples of one row a step, into a shared-memory tile of 32 rows of Lp
+// words plus one where Lp is even (an odd row stride, so 32 threads at the
+// same sample of their own rows hit 32 different banks). Each thread then
+// removes its row's mean, writes the reflected ends beside it, runs the
+// forward cascade in place over the tile row and the backward cascade in
+// place down to the first central sample (the steps below it feed only
+// outputs that are dropped), and the warp stores the centres plus the DC
+// response row by row, 128 coalesced bytes a step. No transposing copy, no
+// global scratch. At L = 256 and route B's padlen 27 a block takes 39,808
+// bytes, so five blocks (160 events) fit an SM. Rows too long for a
+// 32-row tile (kStaged false) run the same passes on a global (n, Lp)
+// scratch row per thread.
 //
 // What bounds it on this card. Bytes: one read of the input and one write of
-// the output (plus the ends scratch, 2*padlen/L of that). Operations: 9
-// float32 operations per section and sample in each direction, 2*Lp*S*9 per
-// event; with contraction off a multiply and an add each take an issue slot,
-// so they run at half the 67 TFLOP/s FMA rate. The two are of the same size
-// at S = 4 (both about 0.65 ms at 1M x 256). What the design does not hide:
-// each step is a serial chain of 2*S dependent operations per thread, so the
-// kernel needs many events in flight; 65536 events give each SM about 500
-// threads, and the chain's latency shows there.
+// the output, 8 L bytes per event. Operations: 9 float32 operations per
+// section and sample, over Lp samples forward and L + p backward, plus the
+// mean removal and DC addition (2 L) and the reflection (4 p):
+// (2 L + 3 p) * S * 9 + 2 L + 4 p per event; with contraction off a
+// multiply and an add each take an issue slot, so they run at half the
+// 67 TFLOP/s FMA rate of the H100 SXM: 0.69 ms at 1M x 256 with S = 4,
+// against 0.64 ms for the bytes. What the design does not hide: each step
+// is a serial chain of dependent operations per thread, and the tile holds
+// five warps an SM. A tile that left the left reflected end out (six warps
+// an SM) was no faster on the H100 (PERF.md), so the block count is not
+// what holds it; the per-step work is.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_rows.cuh"
 
 // Mirrored by _SosParams in ops/filter_cuda.py.
 struct SosParams {
@@ -57,8 +71,9 @@ struct SosParams {
 
 namespace {
 
-constexpr int kChunk = 4;  // sections per unrolled pass
-constexpr int kCoef = 7;   // b0, b1, b2, a1, a2, zi0, zi1
+constexpr int kChunk = 4;      // sections per unrolled pass
+constexpr int kCoef = 7;       // b0, b1, b2, a1, a2, zi0, zi1
+constexpr int kTileRows = 32;  // K5: events (threads) a block, one warp
 
 // Sections [s0, s0 + NS) over `steps` samples of one event: src(k) is the
 // k-th input sample, dst(k, y) stores the k-th output, init(s, j) is the
@@ -78,6 +93,7 @@ __device__ __forceinline__ void run_sections(const float* __restrict__ coef, int
     z0[s] = init(s0 + s, 0);
     z1[s] = init(s0 + s, 1);
   }
+#pragma unroll 4
   for (int k = 0; k < steps; ++k) {
     float x = src(k);
 #pragma unroll
@@ -119,54 +135,79 @@ sosfilt_kernel(const float* x_t, const float* zi, const float* __restrict__ coef
   }
 }
 
-// K5: out_t[:, i] = sosfiltfilt of x_t[:, i]; ends is (2*padlen, n) scratch.
-__global__ void __launch_bounds__(128)
-sosfiltfilt_kernel(const float* __restrict__ x_t, const float* __restrict__ coef,
-                   float* out_t, float* ends, SosParams P) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P.n) return;
-  const size_t n = P.n;
+// K5, one thread per event: out[i, :] = sosfiltfilt of x[i, :] with the
+// mean removed and the DC response added back. kStaged: the block's 32
+// rows lie in the shared-memory tile (row stride `stride` words, odd, so 32
+// threads on the same sample of their own rows hit 32 banks); else each
+// thread works on its row of the (n, Lp) global scratch.
+template <bool kStaged>
+__global__ void __launch_bounds__(kTileRows)
+sosfiltfilt_kernel(const float* __restrict__ x, const float* __restrict__ mean,
+                   const float* __restrict__ dc, const float* __restrict__ coef, float* out,
+                   float* scratch, SosParams P, int stride) {
+  extern __shared__ float tile[];
+  const int lane = threadIdx.x;
+  const int ev0 = blockIdx.x * kTileRows;
+  const int rows = min(kTileRows, P.n - ev0);
   const int L = P.L;
   const int p = P.padlen;
   const int Lp = L + 2 * p;
-  auto X = [&](int t) { return x_t[(size_t)t * n + i]; };
-  const float x0 = X(0);
-  const float xl = X(L - 1);
-  auto ext = [&](int t) -> float {
-    if (t < p) return 2.0f * x0 - X(p - t);
-    if (t >= p + L) return 2.0f * xl - X(2 * (L - 1) + p - t);
-    return X(t - p);
-  };
-  // where the forward output's sample t lives: the left end in ends rows
-  // [0, p), the right end in rows [p, 2p), the centre in out_t
-  auto at = [&](int t) -> float* {
-    if (t < p) return ends + (size_t)t * n + i;
-    if (t >= p + L) return ends + (size_t)(t - L) * n + i;
-    return out_t + (size_t)(t - p) * n + i;
-  };
-  auto store = [&](int k, float v) { *at(k) = v; };
-
-  // forward, over ext (first chunk) or in place (later chunks)
-  const float first = ext(0);
-  auto init_f = [&](int s, int j) { return coef[s * kCoef + 5 + j] * first; };
-  run_chunk(coef, 0, P.S, Lp, ext, store, init_f);
-  for (int s0 = kChunk; s0 < P.S; s0 += kChunk)
-    run_chunk(coef, s0, P.S, Lp, [&](int k) { return *at(k); }, store, init_f);
-
-  // backward, over the forward output in reverse, in place; the last chunk
-  // stores only the central samples
-  const float first_b = *at(Lp - 1);
-  auto init_b = [&](int s, int j) { return coef[s * kCoef + 5 + j] * first_b; };
-  auto load_b = [&](int k) { return *at(Lp - 1 - k); };
-  for (int s0 = 0; s0 < P.S; s0 += kChunk) {
-    if (s0 + kChunk < P.S) {
-      run_chunk(coef, s0, P.S, Lp, load_b,
-                [&](int k, float v) { *at(Lp - 1 - k) = v; }, init_b);
-    } else {
-      run_chunk(coef, s0, P.S, Lp, load_b, [&](int k, float v) {
-        const int t = Lp - 1 - k;
-        if (t >= p && t < p + L) out_t[(size_t)(t - p) * n + i] = v;
-      }, init_b);
+  if (kStaged) {
+    // the block's rows lie back to back in x: 32 lanes copy consecutive
+    // samples of one row at a time (128 coalesced bytes a step), every copy
+    // in flight at once; sample t of row j lands at j * stride + p + t
+    const float* src = x + (size_t)ev0 * L;
+    const unsigned base = (unsigned)__cvta_generic_to_shared(tile);
+    for (int j = 0; j < rows; ++j)
+      for (int t = lane; t < L; t += 32)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         base + 4u * (unsigned)(j * stride + p + t)),
+                     "l"(src + (size_t)j * L + t)
+                     : "memory");
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+  }
+  if (lane < rows) {
+    const int i = ev0 + lane;
+    float* r = kStaged ? tile + lane * stride : scratch + (size_t)i * Lp;
+    // the centre minus the mean (x - mean in f32, as the plain version),
+    // then scipy's odd extension at both ends (Lp = L + 2p):
+    //   ext[t] = 2*xc[0] - xc[p - t]              for t < p,
+    //   ext[t] = 2*xc[L-1] - xc[2*(L-1) + p - t]  for t >= p + L
+    const float m = mean[i];
+    for (int t = 0; t < L; ++t) r[p + t] = (kStaged ? r[p + t] : x[(size_t)i * L + t]) - m;
+    const float x0 = r[p];
+    const float xl = r[p + L - 1];
+    for (int t = 0; t < p; ++t) {
+      r[t] = 2.0f * x0 - r[2 * p - t];
+      r[p + L + t] = 2.0f * xl - r[p + L - 2 - t];
+    }
+    // forward over the whole extension, in place, from zi * ext[0]
+    const float first = r[0];
+    auto init_f = [&](int s, int j) { return coef[s * kCoef + 5 + j] * first; };
+    auto load_f = [&](int k) { return r[k]; };
+    auto store_f = [&](int k, float v) { r[k] = v; };
+    for (int s0 = 0; s0 < P.S; s0 += kChunk) run_chunk(coef, s0, P.S, Lp, load_f, store_f, init_f);
+    // backward in place from zi * y_fwd[Lp-1], down to the first central
+    // sample: the steps below it only feed outputs that are dropped
+    const float first_b = r[Lp - 1];
+    auto init_b = [&](int s, int j) { return coef[s * kCoef + 5 + j] * first_b; };
+    auto load_b = [&](int k) { return r[Lp - 1 - k]; };
+    auto store_b = [&](int k, float v) { r[Lp - 1 - k] = v; };
+    for (int s0 = 0; s0 < P.S; s0 += kChunk)
+      run_chunk(coef, s0, P.S, L + p, load_b, store_b, init_b);
+    if (!kStaged) {
+      const float d = dc[i];
+      for (int t = 0; t < L; ++t) out[(size_t)i * L + t] = r[p + t] + d;
+    }
+  }
+  if (kStaged) {
+    // the centres plus the DC response, stored as they were read
+    __syncwarp();
+    for (int j = 0; j < rows; ++j) {
+      const float d = dc[ev0 + j];
+      for (int t = lane; t < L; t += 32)
+        out[(size_t)(ev0 + j) * L + t] = tile[j * stride + p + t] + d;
     }
   }
 }
@@ -175,18 +216,35 @@ bool bad_params(const SosParams* P) { return P->S < 1 || P->L < 1 || P->padlen <
 
 }  // namespace
 
-// K5 on `stream` for P->n events of P->L samples: x_t is the (L, n)
-// time-major mean-removed input, coef the (S, 7) float32 rows, out_t the
-// (L, n) output, ends a (2*padlen, n) scratch. Returns the launch's
-// cudaError_t.
-extern "C" int wfa_sosfiltfilt(const float* x_t, const float* coef, float* out_t, float* ends,
-                               const SosParams* P, void* stream) {
+// K5 on `stream` for P->n events of P->L samples: x the event-major (n, L)
+// float32 input, mean and dc its (n,) conditioning columns, coef the (S, 7)
+// float32 rows, out the (n, L) output. stride > 0: the rows are filtered
+// in a shared-memory tile of kTileRows events a block, rows of `stride`
+// words (at least L + 2*padlen), 4 * kTileRows * stride bytes; stride 0:
+// in `scratch`, an (n, L + 2*padlen) float32 buffer the caller allocates.
+// ops/filter_cuda.py::filter_layout picks the mode and the stride. Returns
+// the launch's cudaError_t.
+extern "C" int wfa_sosfiltfilt(const float* x, const float* mean, const float* dc,
+                               const float* coef, float* out, float* scratch,
+                               const SosParams* P, int stride, void* stream) {
   if (P->n <= 0) return 0;
-  if (bad_params(P) || P->L <= P->padlen) return (int)cudaErrorInvalidValue;
-  const dim3 block(128);
-  const dim3 grid((P->n + 127) / 128);
-  sosfiltfilt_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x_t, coef, out_t, ends, *P);
+  if (bad_params(P) || P->L <= P->padlen || stride < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((P->n + kTileRows - 1) / kTileRows);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (stride == 0) {
+    if (!scratch) return (int)cudaErrorInvalidValue;
+    sosfiltfilt_kernel<false><<<grid, kTileRows, 0, s>>>(x, mean, dc, coef, out, scratch, *P, 0);
+    return (int)cudaGetLastError();
+  }
+  const long long smem = 4LL * kTileRows * stride;
+  if (stride < P->L + 2 * P->padlen || smem > wfa::kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sosfiltfilt_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  sosfiltfilt_kernel<true><<<grid, kTileRows, (int)smem, s>>>(x, mean, dc, coef, out, nullptr,
+                                                              *P, stride);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 // Threshold runs on one event's row, one warp per event: the run pass and
 // the segment pass of the threshold-hit kernel (hits_scan.cu), shared with
-// the chain kernel (chain_scan.cu), which runs them on its polarity-
+// the chain kernels (warp_chain.cuh), which run them on their polarity-
 // normalised signal.
 //
 // A run is a maximal stretch of samples t < el with x(t) >= thr; its

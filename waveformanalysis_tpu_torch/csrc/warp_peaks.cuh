@@ -1,7 +1,7 @@
 // scipy-parity find_peaks on one event's row, one warp per event: the
 // candidate scan, the distance pruning and the prominence / rel-height
 // walks of the find_peaks kernel (peaks_scan.cu), shared with the chain
-// kernel (chain_scan.cu), which runs them on its detection signal.
+// kernels (warp_chain.cuh), which run them on their detection signal.
 //
 // Each pass takes the row as an accessor `x(t)` (a float from shared or
 // global memory, or a value formed from the staged int16 wave at each read)
@@ -21,8 +21,8 @@
 //               priority (value descending, the higher slot first among
 //               equals); the warp walks the ranks in order, the owner
 //               broadcasts its position if it is still kept and the lanes
-//               within `distance` drop themselves: the keep set of
-//               wfa::distance_prune without its one-thread O(K^2) loop.
+//               within `distance` drop themselves: the keep set of the
+//               greedy one-thread O(K^2) loop, without that loop.
 //   walks       the left and right bases (nearest higher sample, then the
 //               minimum since it) and the rel-height crossings: the warp
 //               searches one kept slot at a time, 32 samples a step (a

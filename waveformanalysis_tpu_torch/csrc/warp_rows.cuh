@@ -1,8 +1,8 @@
 // One warp per event on the event-major (n, L) rows: the row staging and
-// warp helpers shared by the warp-per-event kernels: the chain (chain_scan.cu),
-// find_peaks (peaks_scan.cu), threshold hits (hits_scan.cu) and width
-// crossings (width_scan.cu). warp_peaks.cuh and warp_hits.cuh build their
-// passes from these.
+// warp helpers shared by the warp-per-event kernels: the chains
+// (chain_scan.cu, chain_tile.cu), find_peaks (peaks_scan.cu), threshold hits
+// (hits_scan.cu) and width crossings (width_scan.cu). warp_peaks.cuh,
+// warp_hits.cuh and warp_chain.cuh build their passes from these.
 //
 // A block holds `rows` warps, one event each. A warp copies its event's row
 // into its own shared-memory buffer with cp.async, 16 bytes a lane where

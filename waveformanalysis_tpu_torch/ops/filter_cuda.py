@@ -4,11 +4,15 @@ Port of ``waveformanalysis_tpu/ops/filter_pallas.py`` into ``csrc/sosfilt.cu``:
 
 - ``sosfiltfilt_cuda`` (K5, ``wfa_sosfiltfilt``, replacing
   ``_sosfiltfilt_fused_kernel``): scipy's ``sosfiltfilt`` of an (n, L)
-  batch — the float32 conditioning of ``_sosfiltfilt_pallas_jit`` in torch
-  (per-wave mean removed, ``mean * H(1)^2`` added back), then reflection,
-  forward and backward cascades in one launch. With ``fused=False`` it runs
-  the Pallas two-pass path instead: reflection in torch, then K6 forward,
-  a reversal, K6 backward;
+  batch in one launch. The wrapper computes the float32 conditioning of
+  ``_sosfiltfilt_pallas_jit`` (``ops.filtering.condition``: the per-wave
+  mean and its DC response ``mean * H(1)^2``) and hands the kernel the
+  event-major rows as they lie, with those two columns; the kernel removes
+  the mean as it stages a row, reflects, runs the forward and backward
+  cascades and adds the DC response as it stores. ``filter_layout`` says how
+  the kernel holds the rows. With ``fused=False`` it runs the Pallas
+  two-pass path instead: reflection in torch, then K6 forward, a reversal,
+  K6 backward;
 - ``sosfilt_cuda`` (K6, ``wfa_sosfilt``, replacing ``_sosfilt_kernel``): one
   cascade over a time-major (T, n) input with per-event initial state;
 - ``bandpass_filter``: ``bandpass_filter_pallas``, design and filter.
@@ -23,13 +27,19 @@ the contract the kernels are held to, bit for bit on the same inputs.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
 from waveformanalysis_tpu_torch.ops import filtering as FLT
-from waveformanalysis_tpu_torch.ops.chain_scan_cuda import _check, _devices, _scan_library
+from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
+    SMEM_BYTES,
+    _check,
+    _devices,
+    _scan_library,
+)
 
 
 class _SosParams(ctypes.Structure):
@@ -40,9 +50,40 @@ def _library() -> ctypes.CDLL:
     """Build (at first use) and bind both entries of ``csrc/sosfilt.cu``."""
     ptr = ctypes.c_void_p
     _scan_library("sosfilt", "wfa_sosfiltfilt",
-                  [ptr, ptr, ptr, ptr, ctypes.POINTER(_SosParams), ptr])
+                  [ptr] * 6 + [ctypes.POINTER(_SosParams), ctypes.c_int, ptr])
     return _scan_library("sosfilt", "wfa_sosfilt",
                          [ptr, ptr, ptr, ptr, ctypes.POINTER(_SosParams), ptr])
+
+
+SOS_TILE_ROWS = 32  # K5's events (threads) per block: one warp (kTileRows)
+
+
+@dataclass(frozen=True)
+class FilterLayout:
+    """How K5 holds its rows (``csrc/sosfilt.cu``); the C entry takes
+    ``stride`` as it is."""
+
+    stride: int  # 4-byte words per tile row (L + 2 * padlen, made odd); 0: global scratch
+    smem_bytes: int  # dynamic shared memory per block
+
+    @property
+    def staged(self) -> bool:
+        """The rows are filtered in the shared-memory tile."""
+        return self.stride > 0
+
+
+def filter_layout(L: int, padlen: int) -> FilterLayout:
+    """K5's layout for rows of L samples and ``padlen`` reflected samples at
+    each end: a tile of SOS_TILE_ROWS rows of ``stride`` words per block
+    where it fits a block's shared memory, else the long-row mode (each
+    thread filters its row in an (n, L + 2 * padlen) global scratch). The
+    section count does not enter: the coefficients are read from global
+    memory."""
+    stride = (L + 2 * padlen) | 1  # odd: 32 rows at one sample hit 32 banks
+    smem = 4 * SOS_TILE_ROWS * stride
+    if smem > SMEM_BYTES:
+        return FilterLayout(0, 0)
+    return FilterLayout(stride, smem)
 
 
 _COEF: Dict[Tuple[bytes, str], torch.Tensor] = {}
@@ -106,25 +147,25 @@ def sosfiltfilt_cuda(x: torch.Tensor, sos: np.ndarray, fused: bool = True) -> to
     if _devices(x) == "cpu":
         return FLT.sosfiltfilt_plain(x, sos)
     dev = x.device
-    x = x.to(torch.float32)
+    x = x.to(torch.float32).contiguous()  # event-major, as the caller holds it
     mean, dc = FLT.condition(x, sos)
     if not fused:
         return _two_pass(x - mean, dc, sos, padlen)
+    lay = filter_layout(L, padlen)
     lib = _library()
     with torch.cuda.device(dev):
         coef = coefficient_table(sos, dev)
-        # the mean-removed input, time-major (L, n), in one pass
-        xc_t = torch.sub(x.t(), mean.t(), out=torch.empty((L, n), device=dev))
-        out_t = torch.empty((L, n), device=dev)
-        ends = torch.empty((2 * padlen, n), device=dev)  # reflected ends
+        out = torch.empty((n, L), device=dev)
+        scratch = None if lay.staged else torch.empty((n, L + 2 * padlen), device=dev)
         prm = _SosParams(n=n, L=L, S=int(np.asarray(sos).shape[0]), padlen=padlen)
-        err = lib.wfa_sosfiltfilt(xc_t.data_ptr(), coef.data_ptr(), out_t.data_ptr(),
-                                  ends.data_ptr(), ctypes.byref(prm), _stream(dev))
+        err = lib.wfa_sosfiltfilt(x.data_ptr(), mean.data_ptr(), dc.data_ptr(), coef.data_ptr(),
+                                  out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                                  ctypes.byref(prm), lay.stride, _stream(dev))
     if err != 0:
         raise RuntimeError(f"sosfiltfilt kernel launch failed: cudaError {err}")
     if n:
         sosfiltfilt_cuda.launches += 1
-    return torch.add(out_t.t(), dc, out=torch.empty((n, L), device=dev))
+    return out
 
 
 sosfiltfilt_cuda.launches = 0  # kernel launches (not plain-version calls)
