@@ -23,7 +23,15 @@ version on the card, and drives the port's main paths:
   against the JAX package's (pinned by tests/test_torch_filtered_route.py);
 - slice 4: the facade's ``make_chain_tile`` (the tile chain, one warp per
   event on the event-major rows) on bench.py's workload, with slice 1's
-  JAX counts, then the fused-chain demo (plain, tile and scan chains agree).
+  JAX counts, then the fused-chain demo (plain, tile and scan chains agree);
+- slice 8: the path from DAQ files, ``ctx.get_data(run, ["df_paired",
+  "hit_grouped", "s1_s2"])`` under the default profile on 262,144
+  waveforms of VX2730 files it writes (the g++ CSV decoder, st_waveforms
+  against the written arrays, K2 and K3 launched, the memory held flat),
+  the card's tables of a 16,384 run against the port's CPU Context and the
+  counts of a 4,096 run against the JAX package's (pinned by
+  tests/test_torch_events.py); the grouping ops' device backend against
+  the host backend at 262,144 and 1,048,576 rows; the tutorial.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -39,7 +47,8 @@ matrix).
 
 Then it times the kernels alone and their plain versions (CUDA events) and
 the Context routes' warm per-run wall time at 65,536 and 1,048,576 events
-(route B with and without moving its device columns to the host, in turns).
+(route B with and without moving its device columns to the host, in turns);
+slice 8's route and the grouping backends are timed in their own phases.
 
 Each phase prints one line (phase 3 one line per kernel). The last two
 lines are the kernels' JSON record
@@ -52,6 +61,7 @@ from __future__ import annotations
 import ctypes
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,6 +157,28 @@ BW_WAVE_ATOL = 5e-4  # filtered waves, CUDA vs CPU Context (docs/PARITY.md:34)
 # signals and time-major copies 3.0 + slot tables 4.1 + their compaction 2.7
 ROUTE_B_PEAK_ESTIMATE_GB = 12.6
 
+# slice 8: the path from DAQ files. A VX2730 run of 2 channels x 4 files x
+# n / 8 rows of WAVE_LEN samples (write_ingest_run), read through the
+# default profile; channel 1 is staggered inside df_events' 100 ns window
+N_INGEST = 262_144  # about one records shard (the JAX records plugin shards at 250k events)
+N_INGEST_CPU = 16_384  # the card's tables against the port's CPU Context
+N_INGEST_REF = 4_096  # row counts against the JAX package's
+INGEST_FILES = 4
+INGEST_DT_PS = 10_000_000  # between a channel's rows
+INGEST_OFFSET_PS = 20_000  # channel 1's stagger
+INGEST_REQUEST = ["df_paired", "hit_grouped", "s1_s2"]
+INGEST_TABLES = ("st_waveforms", "df", "df_events", "df_paired", "hit", "hit_threshold",
+                 "hit_grouped")
+# the JAX package's default profile (tpu_default) on write_ingest_run(...,
+# N_INGEST_REF, seed=0): row counts and S1/S2 counts;
+# tests/test_torch_events.py recomputes these with JAX
+REF_INGEST_4096 = {
+    "st_waveforms": 4096, "df": 4096, "df_events": 2048, "df_paired": 2048, "hit": 4096,
+    "hit_threshold": 6218, "hit_grouped": 2302, "n_s1": 2048, "n_s2": 2048,
+}
+# the device-grouping phase's df sizes
+N_GROUPING = (262_144, 1_048_576)
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -225,6 +257,13 @@ def median_ms(fn, iters: int = 7, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def timeit_s(fn) -> float:
+    """Host wall seconds of one call of fn."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def kernel_tag(mangled: str) -> str:
     """A short name for a kernel's mangled symbol: its template arguments
     (``ILb1ELb0E`` -> ``<1,0>``, ``IsLb1E`` -> ``<s,1>``), else its tail."""
@@ -275,6 +314,145 @@ def check_chain_counts(out: dict, dev, n: int, tag: str) -> str:
           f"JAX reference {ref}")
     return (f"S1 {got[0]}/{n // 2} even, S2 {got[1]}/{n // 2} odd, peak overflow {got[2]}, "
             f"hit overflow {got[3]}")
+
+
+def write_ingest_run(data_root: str, run: str, n: int, seed: int) -> np.ndarray:
+    """A VX2730 run of ``n`` waveforms: 2 channels x INGEST_FILES files.
+    The waves are bench.make_batch's (positive pulses on a 1000 ADC
+    baseline, as in the earlier phases): a narrow S1 pulse on even rows, a
+    wide S2 on odd rows. Channel c's row i is at i * INGEST_DT_PS + c *
+    INGEST_OFFSET_PS. Returns the (n, WAVE_LEN) waves in st_waveforms' row
+    order (channel 0's files, then channel 1's)."""
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.testing.fixtures import write_vx2730_run
+
+    waves = make_batch(n, WAVE_LEN, seed=seed)
+    half = n // 2
+    ts = np.arange(half, dtype=np.int64) * INGEST_DT_PS
+    for ch in (0, 1):
+        write_vx2730_run(data_root, run, waves[ch * half:(ch + 1) * half],
+                         ts + ch * INGEST_OFFSET_PS, ch, n_files=INGEST_FILES)
+    return waves
+
+
+def ingest_context(ctx_cls, profile, data_root: str, storage_dir: str, device=None):
+    """A Context over the DAQ files at ``data_root`` with the plugins of
+    ``profile``, positive pulses on every channel (channel metadata) and
+    route A's hit and S1/S2 settings (config 7's); ``device`` None for the
+    JAX package's Context."""
+    config = {"data_root": data_root, "daq_adapter": "vx2730", "n_channels": 2,
+              "show_progress": False,
+              "channel_metadata": {"defaults": {"polarity": "positive"}}}
+    if device is not None:
+        config["device"] = device
+    ctx = ctx_cls(storage_dir=storage_dir, config=config)
+    ctx.register(*profile)
+    ctx.set_config(FILTER_ROUTES["A"][0])
+    return ctx
+
+
+def ingest_counts(ctx, run: str) -> dict:
+    """Row counts of INGEST_TABLES and the S1/S2 counts of a computed run."""
+    got = {m: len(ctx.get_data(run, m)) for m in INGEST_TABLES}
+    lab = np.asarray(ctx.get_data(run, "s1_s2")["label"])
+    got.update(n_s1=int(np.sum(lab == 1)), n_s2=int(np.sum(lab == 2)))
+    return got
+
+
+# the ingest route's tables held against the port's CPU Context: everything
+# the request computes (filtered_waveforms without its waves, held apart)
+INGEST_COMPARED = ("st_waveforms", "filtered_waveforms", "basic_features", "hit",
+                   "hit_threshold", "waveform_width", "s1_s2", "hit_merged",
+                   "hit_merged_components", "df", "df_events", "hit_grouped", "df_paired")
+
+
+def compare_frames(ref, out, tag: str) -> float:
+    """Two DataFrames column by column with their dtypes: per-event array
+    cells one by one, float columns within ATOL/RTOL (NaN where NaN), the
+    rest exact. Returns the largest float |diff|."""
+    import pandas as pd
+
+    check(list(out.columns) == list(ref.columns), f"{tag}: columns {list(out.columns)}")
+    check(list(out.dtypes) == list(ref.dtypes) and len(out) == len(ref),
+          f"{tag}: dtypes {list(out.dtypes)} != {list(ref.dtypes)} or {len(out)} != {len(ref)}")
+    worst = 0.0
+    for col in ref.columns:
+        a, b = ref[col], out[col]
+        if a.dtype == object:  # per-event array cells: lengths, dtypes, values
+            cells = [[np.asarray(c) for c in side] for side in (a, b)]
+            check([len(c) for c in cells[0]] == [len(c) for c in cells[1]]
+                  and {c.dtype for c in cells[0]} == {c.dtype for c in cells[1]},
+                  f"{tag}.{col}: cell lengths or dtypes differ")
+            if not cells[0]:
+                continue
+            x, y = (np.concatenate(c) for c in cells)
+            if np.issubdtype(x.dtype, np.floating):
+                check(bool(np.allclose(y, x, atol=ATOL, rtol=RTOL)), f"{tag}.{col}: cells differ")
+                if x.size:
+                    worst = max(worst, float(np.max(np.abs(y.astype(np.float64) - x))))
+            else:
+                check(np.array_equal(x, y), f"{tag}.{col}: cells differ")
+        elif np.issubdtype(a.dtype, np.floating):
+            pd.testing.assert_series_equal(b, a, check_exact=False, atol=ATOL, rtol=RTOL)
+            d = np.abs(b.to_numpy(np.float64) - a.to_numpy(np.float64))
+            if np.isfinite(d).any():
+                worst = max(worst, float(np.nanmax(d)))
+        else:
+            pd.testing.assert_series_equal(b, a, check_exact=True)
+    return worst
+
+
+def compare_ingest(cpu_ctx, gpu_ctx, run: str) -> tuple:
+    """Every INGEST_COMPARED table of ``run``, the card's against the CPU
+    Context's: Table fields with their dtypes, integers exactly, floats
+    within ATOL/RTOL and NaN where NaN (the SG waves within SG_RTOL);
+    DataFrames column by column. Returns the largest float |diff| and where
+    it is."""
+    import pandas as pd
+
+    worst = (0.0, "")
+    for name in INGEST_COMPARED:
+        ref, out = cpu_ctx.get_data(run, name), gpu_ctx.get_data(run, name)
+        if isinstance(ref, pd.DataFrame):
+            worst = max(worst, (compare_frames(ref, out, f"ingest {name}"), name))
+            continue
+        check(ref.field_names == out.field_names and len(ref) == len(out),
+              f"ingest {name}: fields {out.field_names} x {len(out)}")
+        for f in ref.field_names:
+            a, b = np.asarray(ref[f]), np.asarray(out[f])
+            tag = f"ingest {name}.{f}"
+            check(a.dtype == b.dtype and a.shape == b.shape, f"{tag}: {b.dtype}{b.shape}")
+            if not np.issubdtype(a.dtype, np.floating):
+                check(np.array_equal(a, b), f"{tag}: integer mismatches")
+                continue
+            rtol, atol = (SG_RTOL, 0.0) if (name, f) == ("filtered_waveforms", "wave") \
+                else (RTOL, ATOL)
+            check(bool(np.isclose(b, a, rtol=rtol, atol=atol, equal_nan=True).all()),
+                  f"{tag}: values outside atol {atol} / rtol {rtol}")
+            d = np.abs(b.astype(np.float64) - a)
+            if f != "wave" and np.isfinite(d).any():
+                worst = max(worst, (float(np.nanmax(d)), f"{name}.{f}"))
+    return worst
+
+
+def grouping_df(n: int, seed: int):
+    """A df table of ``n`` rows for the grouping phase: 4 channels, gaps
+    drawn so that a fifth of the rows tie with the one before, most
+    clusters hold 1 to 4 rows and long gaps leave empty windows between
+    them; float32 area and height, as the plugin's df carries them."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    u = rng.random(n)
+    gaps = np.where(u < 0.2, 0, np.where(u < 0.7, rng.integers(1, 60_000, n),
+                                         rng.integers(150_000, 5_000_000, n)))
+    ts = 10**15 + np.cumsum(gaps.astype(np.int64))
+    return pd.DataFrame({
+        "timestamp": rng.permutation(ts),
+        "channel": rng.integers(0, 4, n).astype(np.int16),
+        "area": rng.uniform(0, 100, n).astype(np.float32),
+        "height": rng.uniform(0, 10, n).astype(np.float32),
+    })
 
 
 def make_route_context(ctx_cls, plugins, storage_dir: str, device: str,
@@ -428,6 +606,209 @@ def step_ops(fn) -> dict:
         elif e.key.startswith("aten::"):
             aten[e.key] = e.count
     return {"device": dev_ops, "aten": aten}
+
+
+def on_card(dev) -> bool:
+    return dev.type == "cuda"
+
+
+def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
+    """Slice 8's main path: ``get_data(run, INGEST_REQUEST)`` on VX2730
+    files of ``n`` waveforms through the default profile, cold and then 3
+    warm runs, each on a freshly written run (the write timed apart). Checks
+    the native decoder, that K2 and K3 and no other kernel launched, that
+    the first run's st_waveforms equals the written arrays (the baseline the
+    float64 mean of its window, exactly), and that the memory allocated
+    after each run stays flat. Then the card's tables of an ``n_cpu`` run
+    against the port's CPU Context, and the row counts of an N_INGEST_REF
+    run against the JAX package's. Returns the first run's launch counts."""
+    import waveformanalysis_tpu_torch as wa
+    from waveformanalysis_tpu_torch import native
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.processing.records_builder import resolve_baseline_window
+
+    # the g++ CSV decoder builds into build/native and loads: the ingest
+    # path parses with it, not with a slower Python engine
+    decoder = native.get_lib()
+    lib_path = native.loaded_path()
+    check(decoder is not None and lib_path is not None
+          and lib_path.parent == ROOT / "build" / "native",
+          f"the native CSV decoder did not build into build/native ({lib_path})")
+    with tempfile.TemporaryDirectory() as tmp:
+        daq = f"{tmp}/DAQ"
+        ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/run", dev.type)
+        walls, writes, flushes, phases, held = [], [], [], [], []
+        for i in range(4):  # cold, then three warm runs, each on a fresh run
+            run = f"ingest{i}"
+            t0 = time.perf_counter()
+            written = write_ingest_run(daq, run, n, seed=500 + i)
+            writes.append(time.perf_counter() - t0)
+            if i == 0:  # the decoder alone on one file in this host's page cache
+                one = sorted(Path(daq, run, "RAW").glob("*.CSV"))[1]
+                blob = one.read_bytes()
+                t_native = min(timeit_s(lambda: native.decode_csv_bytes(blob)) for _ in range(3))
+                reader = wa.get_adapter("vx2730").format_reader
+                t_arrow = timeit_s(lambda: reader.read_file(one, is_first_file=False,
+                                                            parse_engine="pyarrow"))
+                csv_bytes = sum(f.stat().st_size for f in Path(daq, run, "RAW").iterdir())
+            ctx.profiler.reset()
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = ctx.get_data(run, INGEST_REQUEST)
+            if on_card(dev):
+                torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            got = {name: fn.launches for name, fn in kernels.items()}
+            if on_card(dev):
+                check(got["peaks_scan"] >= 1 and got["hits_scan"] >= 1 and all(
+                    v == 0 for k, v in got.items() if k not in ("peaks_scan", "hits_scan")),
+                    f"ingest route {run}: launches {got}, expected K2 and K3 only")
+            phases.append({k: v["total_s"] for k, v in ctx.profiler.stats().items()})
+            check(list(res) == INGEST_REQUEST and len(res["df_paired"]) > 0
+                  and len(res["hit_grouped"]) > 0 and len(res["s1_s2"]) > 0,
+                  f"ingest route {run}: empty results")
+            if i == 0:
+                first_launches = got
+                check_ingested(ctx.get_data(run, "st_waveforms"), written, n,
+                               wa.get_adapter("vx2730").format_spec.columns,
+                               resolve_baseline_window)
+                lab = np.asarray(res["s1_s2"]["label"])
+                sizes = {m: len(ctx.get_data(run, m)) for m in INGEST_TABLES}
+                print(f"main path 8 ingest {n}x{WAVE_LEN} (2 channels x {INGEST_FILES} files, "
+                      f"{csv_bytes} bytes of CSV): get_data({INGEST_REQUEST}) launches {got}; "
+                      f"tables {sizes}, S1 {int(np.sum(lab == 1))}, S2 {int(np.sum(lab == 2))}; "
+                      f"st_waveforms wave/timestamp/board/channel/event_length = the written "
+                      f"arrays, baseline = the float64 mean of its window exactly; native "
+                      f"decoder {lib_path.relative_to(ROOT)}: {len(blob)} bytes in "
+                      f"{t_native * 1e3:.1f} ms = {len(blob) / t_native / 1e6:.0f} MB/s "
+                      f"(pyarrow engine {t_arrow * 1e3:.1f} ms) on this host", flush=True)
+            del written, res
+            t0 = time.perf_counter()
+            ctx.flush_saves()
+            flushes.append(time.perf_counter() - t0)
+            held.append(torch.cuda.memory_allocated(dev) if on_card(dev) else 0)
+            shutil.rmtree(Path(daq, run))
+        keys = ("plugin.raw_files.compute", "st_waveforms.decode", "st_waveforms.structure",
+                "plugin.st_waveforms.compute", "plugin.filtered_waveforms.compute",
+                "fusion.single.load", "fusion.single.upload", "fusion.single.device_program",
+                "fusion.single.fetch", "fusion.single.finalize", "plugin.hit.compute",
+                "plugin.waveform_width.compute", "plugin.s1_s2.compute", "plugin.df.compute",
+                "plugin.df_events.compute", "plugin.hit_grouped.compute",
+                "plugin.df_paired.compute", "context.save_cache",
+                "context.release_device_columns")
+        med = statistics.median(walls[1:])
+        med_ph = {k: round(statistics.median(p.get(k, 0.0) for p in phases[1:]) * 1e3, 1)
+                  for k in keys}
+        check(max(held) - min(held) <= 16 << 20, f"ingest route: memory allocated after each "
+              f"run {held} B is not flat")
+        print(f"route ingest {n}x{WAVE_LEN} ({smi}): write {[round(x, 2) for x in writes]} s "
+              f"(numpy, apart from the route); cold {walls[0]:.3f} s; warm median of 3 "
+              f"{med * 1e3:.1f} ms = {n / med:.0f} waveforms/s (runs "
+              f"{[round(x * 1e3, 1) for x in walls[1:]]} ms); phases ms {med_ph}; flush_saves "
+              f"median {statistics.median(flushes[1:]) * 1e3:.1f} ms; memory allocated after "
+              f"each run {held} B", flush=True)
+        del ctx
+
+        # the card's tables against the port's CPU Context, and the row
+        # counts against the JAX package's
+        write_ingest_run(daq, "cmp", n_cpu, seed=7)
+        gpu = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/cmp_dev", dev.type)
+        gpu.get_data("cmp", INGEST_REQUEST)
+        t_cpu = time.perf_counter()
+        cpu = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/cmp_cpu", "cpu")
+        cpu.get_data("cmp", INGEST_REQUEST)
+        t_cpu = time.perf_counter() - t_cpu
+        err, where = compare_ingest(cpu, gpu, "cmp")
+        print(f"main path 8 at {n_cpu}x{WAVE_LEN}: every table of the request "
+              f"{list(INGEST_COMPARED)} = the CPU Context's (DataFrames column by column with "
+              f"their dtypes; max |f32 diff| {err:.3g}, {where}; CPU route {t_cpu:.1f} s); "
+              f"counts {ingest_counts(gpu, 'cmp')}", flush=True)
+        for c in (gpu, cpu):
+            c.flush_saves()
+        write_ingest_run(daq, "ref", N_INGEST_REF, seed=0)
+        ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/ref", dev.type)
+        ctx.get_data("ref", INGEST_REQUEST)
+        got = ingest_counts(ctx, "ref")
+        ctx.flush_saves()
+        check(got == REF_INGEST_4096, f"ingest at {N_INGEST_REF}: {got}, JAX reference "
+              f"{REF_INGEST_4096}")
+        print(f"main path 8 at {N_INGEST_REF}x{WAVE_LEN}: {got} (= JAX reference)", flush=True)
+    return first_launches
+
+
+def check_ingested(st, written: np.ndarray, n: int, columns, resolve_baseline_window) -> None:
+    """st_waveforms of a write_ingest_run run against the written arrays:
+    wave, timestamp, board, channel and event_length exactly, and baseline
+    the float64 numpy mean over the format's baseline window, exactly (the
+    JAX package's formula)."""
+    half = n // 2
+    check(np.array_equal(np.asarray(st["wave"]), written.astype(np.int16)),
+          "ingest st_waveforms.wave != the written samples")
+    ts = np.tile(np.arange(half, dtype=np.int64) * INGEST_DT_PS, 2)
+    ts[half:] += INGEST_OFFSET_PS
+    for f, want in (("timestamp", ts), ("board", np.zeros(n, np.int16)),
+                    ("channel", np.repeat(np.arange(2, dtype=np.int16), half)),
+                    ("event_length", np.full(n, WAVE_LEN, np.int32))):
+        col = np.asarray(st[f])
+        check(col.dtype == want.dtype and np.array_equal(col, want),
+              f"ingest st_waveforms.{f} != the written {f}")
+    lo, hi = resolve_baseline_window(None, columns.samples_start, columns.baseline_start,
+                                     columns.baseline_end)
+    first = columns.samples_start
+    want = np.mean(written[:, lo - first:hi - first].astype(np.float64), axis=1)
+    check(np.array_equal(np.asarray(st["baseline"]), want),
+          "ingest st_waveforms.baseline != the float64 mean of the baseline window")
+
+
+def grouping_phase(dev, smi: str, sizes) -> None:
+    """df_events (group_multi_channel_hits), events (group_events_columnar)
+    and df_paired (pair_events) with backend "device" (torch ops on ``dev``)
+    against "host" (numpy) on grouping_df tables of each size: equal
+    outputs; wall times in turns host, device, device, host after a warm-up
+    on a small table."""
+    from waveformanalysis_tpu_torch.ops import grouping as G
+
+    warm = grouping_df(4096, seed=1)
+    G.pair_events(G.group_multi_channel_hits(warm, 100.0, backend="device", device=dev),
+                  100.0, 2, backend="device", device=dev)
+    for n_rows in sizes:
+        df = grouping_df(n_rows, seed=n_rows % 1000)
+        out, t = {}, {"host": [], "device": []}
+        for backend in ("host", "device", "device", "host"):
+            t0 = time.perf_counter()
+            ev = G.group_multi_channel_hits(df, 100.0, backend=backend, device=dev)
+            t1 = time.perf_counter()
+            cols = G.group_events_columnar(df, 100.0, backend=backend, device=dev)
+            t2 = time.perf_counter()
+            paired = G.pair_events(ev, 100.0, 2, start_channel=6, backend=backend, device=dev)
+            t3 = time.perf_counter()
+            t[backend].append((t1 - t0, t2 - t1, t3 - t2))
+            out[backend] = (ev, cols, paired)
+        (ev_h, cols_h, pa_h), (ev_d, cols_d, pa_d) = out["host"], out["device"]
+        compare_frames(ev_h, ev_d, f"df_events device {n_rows}")
+        compare_frames(pa_h, pa_d, f"df_paired device {n_rows}")
+        for k in cols_h:
+            check(cols_h[k].dtype == cols_d[k].dtype and np.array_equal(cols_h[k], cols_d[k]),
+                  f"events device {n_rows}: {k} differs from the host's")
+        ms = {b: [round(statistics.mean(x[j] for x in t[b]) * 1e3, 1) for j in range(3)]
+              for b in t}
+        print(f"grouping {n_rows} df rows ({smi}): {len(ev_h)} events, {len(pa_h)} paired "
+              f"({int(pa_h['area_ch7'].isna().sum())} without a second hit); device = host on "
+              f"df_events, events and df_paired; ms (df_events, events, df_paired), mean of 2 "
+              f"in turns: host {ms['host']}, device {ms['device']}", flush=True)
+
+
+def tutorial_phase() -> None:
+    """The port's tutorial, as a user runs it (on the card by default)."""
+    proc = subprocess.run([sys.executable, "-m", "waveformanalysis_tpu_torch.examples.tutorial"],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT)
+    check(proc.returncode == 0, f"the tutorial failed: {proc.stderr.strip()[-3000:]}")
+    paired = [ln for ln in proc.stdout.splitlines() if ln.startswith("df_paired:")]
+    check("device: cuda" in proc.stdout and bool(paired), "the tutorial did not run on the card")
+    print(f"tutorial (python -m waveformanalysis_tpu_torch.examples.tutorial): exit 0 on the "
+          f"card; {paired[0][:60]}", flush=True)
 
 
 def main() -> None:
@@ -928,6 +1309,11 @@ def main() -> None:
                   flush=True)
             del ctx
 
+    # ---- phases 5c-5e: slice 8, the path from DAQ files -----------------
+    ingest_launches = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU)
+    grouping_phase(dev, smi, N_GROUPING)
+    tutorial_phase()
+
     # ---- phase 6: kernel times ---------------------------------------------
     # kernels alone on cold inputs (several copies in turn, more bytes than
     # the 50 MB L2 holds): the event-major rows as the caller holds them
@@ -1354,6 +1740,7 @@ def main() -> None:
             "bound_ms": b_ms,
             "bound_by": b_by,
             "library_ms": None,  # no PyTorch call computes these functions
+            "ingest_launches": ingest_launches[name],  # slice 8's route from files
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -243,7 +243,7 @@ def test_fused_chain_demo_on_cpu():
 
 
 # JAX facade names whose modules the port does not have yet (ROADMAP
-# Queue 1: streaming slice 5, multi-device slice 6, surface slice 7)
+# Queue 1: records, batching, streaming, multi-device, surface)
 NOT_YET_PORTED = (
     "Chunk", "StreamingPlugin", "StreamingContext", "get_streaming_context",
     "parallel_map", "parallel_apply", "ExecutorManager", "CancellationToken",
@@ -251,22 +251,22 @@ NOT_YET_PORTED = (
     "wrap_strax_plugin", "StraxContextAdapter", "PluginLoader", "enable_hot_reload",
     "PluginHotReloader", "CacheManager", "EXECUTOR_CONFIGS", "get_executor",
     "get_executor_manager", "get_config", "register_config", "get_timeout_manager",
-    "group_multi_channel_hits", "WaveformStruct", "WaveformStructConfig", "tpu_default",
-    "get_profile", "BatchProcessor", "PipelineServer", "make_sharded_chain",
+    "BatchProcessor", "PipelineServer", "make_sharded_chain",
     "make_sharded_chain_pallas", "make_sharded_chain_scan", "DAQRun", "DAQAnalyzer",
     "parse_and_stack_files", "WaveformPreviewer", "preview_waveforms",
     "plot_records_waveforms", "plot_lineage_labview", "plot_lineage_plotly",
     "LineageGraphModel", "build_lineage_graph", "plot_waveforms",
-    "create_interactive_browser", "LineageStyle", "register_adapter", "get_adapter",
-    "list_adapters",
+    "create_interactive_browser", "LineageStyle",
 )
-# JAX facade name -> the port's name for it (kernel-named chain entries)
+# JAX facade name -> the port's name for it (kernel-named chain entries and
+# the TPU-named default profile)
 MAPPED = {
     "make_jit_chain": "make_chain",
     "make_jit_chain_scan": "make_chain_scan",
     "chain_scan_pallas": "chain_scan_cuda",
     "make_jit_chain_pallas": "make_chain_tile",
     "chain_pallas": "chain_tile_cuda",
+    "tpu_default": "cuda_default",
 }
 
 

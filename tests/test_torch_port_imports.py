@@ -31,6 +31,21 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.plugins.builtin.waveform_width",
     "waveformanalysis_tpu_torch.storage.memmap",
     "waveformanalysis_tpu_torch.kernels._build",
+    "waveformanalysis_tpu_torch.formats.adapter",
+    "waveformanalysis_tpu_torch.formats.vx2730",
+    "waveformanalysis_tpu_torch.formats.v1725",
+    "waveformanalysis_tpu_torch.formats.generic",
+    "waveformanalysis_tpu_torch.native",
+    "waveformanalysis_tpu_torch.processing.loader",
+    "waveformanalysis_tpu_torch.processing.analyzer",
+    "waveformanalysis_tpu_torch.processing.records_builder",
+    "waveformanalysis_tpu_torch.plugins.builtin.waveforms",
+    "waveformanalysis_tpu_torch.plugins.builtin.dataframe",
+    "waveformanalysis_tpu_torch.plugins.builtin.event_analysis",
+    "waveformanalysis_tpu_torch.plugins.plugin_sets",
+    "waveformanalysis_tpu_torch.ops.grouping",
+    "waveformanalysis_tpu_torch.ops.grouping_device",
+    "waveformanalysis_tpu_torch.examples.tutorial",
 )
 
 
@@ -54,7 +69,8 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(KEY_MODULES) <= set(result["modules"])
-    assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context"} <= set(result["names"])
+    assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context", "get_profile",
+            "cuda_default", "get_adapter", "group_multi_channel_hits"} <= set(result["names"])
     assert result["leaked"] == []
 
 

@@ -19,6 +19,7 @@ JAX package                     port
 ``chain_scan_pallas``           ``chain_scan_cuda``
 ``make_jit_chain_pallas``       ``make_chain_tile`` (K7, ``csrc/chain_tile.cu``)
 ``chain_pallas``                ``chain_tile_cuda``
+``tpu_default``                 ``cuda_default`` (the default plugin profile)
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
@@ -37,7 +38,13 @@ Ported so far:
   mode K6);
 - slice 4, the tile-resident chain ``make_chain_tile`` (K7, one warp per
   event on the event-major rows) and the fused-chain demo
-  (``python -m waveformanalysis_tpu_torch.examples.fused_chain_demo``).
+  (``python -m waveformanalysis_tpu_torch.examples.fused_chain_demo``);
+- slice 8, the path from DAQ files: the VX2730 / V1725 adapters
+  (``get_adapter``), ``raw_files`` -> ``st_waveforms`` -> ``df`` ->
+  ``df_events`` / ``hit_grouped`` -> ``df_paired`` under the default
+  profile (``ctx.register(*get_profile("cuda"))``), the event grouping
+  (``group_multi_channel_hits``) and the tutorial
+  (``python -m waveformanalysis_tpu_torch.examples.tutorial``).
 """
 
 from __future__ import annotations
@@ -84,6 +91,15 @@ _LAZY_API = {
     "find_peaks_scan": (_P + "ops.chain_scan_cuda", "find_peaks_scan"),
     "make_chain_tile": (_P + "ops.chain_tile_cuda", "make_chain_tile"),
     "chain_tile_cuda": (_P + "ops.chain_tile_cuda", "chain_tile_cuda"),
+    # ingest, profiles and event grouping
+    "get_adapter": (_P + "formats.adapter", "get_adapter"),
+    "register_adapter": (_P + "formats.adapter", "register_adapter"),
+    "list_adapters": (_P + "formats.adapter", "list_adapters"),
+    "WaveformStruct": (_P + "plugins.builtin.waveforms", "WaveformStruct"),
+    "WaveformStructConfig": (_P + "plugins.builtin.waveforms", "WaveformStructConfig"),
+    "cuda_default": (_P + "plugins.plugin_sets", "cuda_default"),
+    "get_profile": (_P + "plugins.plugin_sets", "get_profile"),
+    "group_multi_channel_hits": (_P + "ops.grouping", "group_multi_channel_hits"),
     # foundation
     "Profiler": (_P + "foundation.profiler", "Profiler"),
     "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),

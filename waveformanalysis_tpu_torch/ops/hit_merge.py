@@ -16,7 +16,7 @@ narrow sequential fallback only for clusters that overflow max_total_width.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -62,17 +62,18 @@ def cluster_channel_hits(
     new_cluster = (gap > merge_gap_ps) | (dt_ps[1:] != dt_ps[:-1])
     ids = np.concatenate([[0], np.cumsum(new_cluster)]).astype(np.int64)
 
-    # enforce max_total_width per cluster (rare: only oversized clusters loop)
+    # enforce max_total_width per cluster (rare: only oversized clusters loop);
+    # ids do not decrease, so cluster c holds rows bounds[c]:bounds[c + 1]
     out = ids.copy()
     next_id = int(ids.max()) + 1
-    for cid in np.unique(ids):
-        idx = np.flatnonzero(ids == cid)
-        if len(idx) < 2:
+    bounds = np.flatnonzero(np.diff(ids, prepend=-1, append=ids[-1] + 1))
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        if hi - lo < 2:
             continue
-        start0 = abs_start[idx[0]]
-        end_run = abs_end[idx[0]]
-        cur = out[idx[0]]
-        for j in idx[1:]:
+        start0 = abs_start[lo]
+        end_run = abs_end[lo]
+        cur = out[lo]
+        for j in range(lo + 1, hi):
             nxt_end = max(end_run, abs_end[j])
             if (abs_start[j] - end_run <= merge_gap_ps
                     and (nxt_end - start0) <= max_width_ps):
@@ -139,68 +140,78 @@ def merge_hits(
     boards = np.asarray(hits.get("board", np.zeros(n, np.int16)))
     channels = np.asarray(hits["channel"])
 
-    cluster_rows: List[Tuple[int, int]] = []
-    merged_rows: List[Dict[str, Any]] = []
-    component_rows: List[Tuple[int, int]] = []
-    global_cluster = 0
-
+    # clusters in emission order (hardware channel, then cluster id), each
+    # with its members in ``order``'s order (order[ids == cid]), gathered by
+    # one stable sort a channel, not one scan of the channel per cluster
+    members_flat, sizes = [], []
     for _hw, idx in group_indices_by_hardware_channel(boards, channels).items():
         order = idx[np.argsort(abs_start[idx], kind="stable")]
         ids = cluster_channel_hits(
             abs_start[order], abs_end[order], dt_ps[order],
             merge_gap_ps, max_width_ps,
         )
-        for cid in range(int(ids.max()) + 1 if len(ids) else 0):
-            members = order[ids == cid]
-            ci = global_cluster
-            global_cluster += 1
-            for m in members:
-                cluster_rows.append((ci, int(m)))
-            merged_rows.append(_emit_cluster(hits, members, dt))
+        n_clusters = int(ids.max()) + 1 if len(ids) else 0
+        by_cluster = np.argsort(ids, kind="stable")
+        members_flat.append(order[by_cluster])
+        sizes.append(np.bincount(ids, minlength=n_clusters))
+    members_flat = np.concatenate(members_flat).astype(np.int64)
+    sizes = np.concatenate(sizes).astype(np.int64)
+    offsets = np.zeros(len(sizes), dtype=np.int64)
+    np.cumsum(sizes[:-1], out=offsets[1:])
 
-    # assemble merged columns + component table
-    merged = _stack_merged(merged_rows)
-    comp_offset = 0
-    offsets = []
-    for mi, row in enumerate(merged_rows):
-        offsets.append(comp_offset)
-        for hi in row["_members"]:
-            component_rows.append((mi, int(hi)))
-        comp_offset += len(row["_members"])
-    merged["component_offset"] = np.asarray(offsets, dtype=np.int64)
-    merged["component_count"] = np.asarray(
-        [len(r["_members"]) for r in merged_rows], dtype=np.int32
-    )
-    cluster_arr = np.asarray(cluster_rows, dtype=np.int64).reshape(-1, 2)
-    comp_arr = np.asarray(component_rows, dtype=np.int64).reshape(-1, 2)
-    return merged, cluster_arr, comp_arr
+    # a one-hit cluster's row is its hit's (vectorised); larger clusters go
+    # through _emit_cluster
+    merged = _single_hit_rows(hits, members_flat[offsets], dt)
+    for ci in np.flatnonzero(sizes > 1).tolist():
+        row = _emit_cluster(hits, members_flat[offsets[ci]:offsets[ci] + sizes[ci]], dt)
+        for name, _dtype in _MERGED_FIELDS:
+            merged[name][ci] = row[name]
+    merged["component_offset"] = offsets
+    merged["component_count"] = sizes.astype(np.int32)
+    # cluster rows and component rows are the same (cluster, hit) pairs
+    pairs = np.stack([np.repeat(np.arange(len(sizes), dtype=np.int64), sizes),
+                      members_flat], axis=1)
+    return merged, pairs, pairs.copy()
+
+
+def _single_hit_rows(hits: Dict[str, np.ndarray], anchor: np.ndarray,
+                     dt: np.ndarray) -> Dict[str, np.ndarray]:
+    """Merged columns whose row k is hit ``anchor[k]`` alone: its own
+    values (the window its edges, the width its ``width`` or edge span),
+    cast to the merged dtypes."""
+    n = len(anchor)
+
+    def take(name, dtype, default=None):
+        if name not in hits:
+            return np.full(n, default, dtype=dtype)
+        return np.asarray(hits[name])[anchor].astype(dtype)
+
+    if "width" in hits:
+        width = take("width", np.float32)
+    else:
+        width = (np.asarray(hits["edge_end"])[anchor]
+                 - np.asarray(hits["edge_start"])[anchor]).astype(np.float32)
+    return {
+        "position": take("position", np.int64),
+        "height": take("height", np.float32),
+        "integral": take("integral", np.float32),
+        "sample_start": take("edge_start", np.int32),
+        "sample_end": take("edge_end", np.int32),
+        "width": width,
+        "dt": dt[anchor].astype(np.int32),
+        "rise_time": take("rise_time", np.float32, 0.0),
+        "fall_time": take("fall_time", np.float32, 0.0),
+        "timestamp": take("timestamp", np.int64),
+        "board": take("board", np.int16, 0),
+        "channel": take("channel", np.int16),
+        "record_id": take("record_id", np.int64),
+    }
 
 
 def _emit_cluster(hits: Dict[str, np.ndarray], members: np.ndarray,
                   dt: np.ndarray) -> Dict[str, Any]:
-    """One merged row (reference: hit_merge.py:256-324)."""
-    if len(members) == 1:
-        i = int(members[0])
-        return {
-            "_members": members,
-            "position": int(hits["position"][i]),
-            "height": float(hits["height"][i]),
-            "integral": float(hits["integral"][i]),
-            "sample_start": int(hits["edge_start"][i]),
-            "sample_end": int(hits["edge_end"][i]),
-            "width": float(hits["width"][i]) if "width" in hits else float(
-                hits["edge_end"][i] - hits["edge_start"][i]),
-            "dt": int(dt[i]),
-            "rise_time": float(hits.get("rise_time", np.zeros(1))[i]
-                               if "rise_time" in hits else 0.0),
-            "fall_time": float(hits.get("fall_time", np.zeros(1))[i]
-                               if "fall_time" in hits else 0.0),
-            "timestamp": int(hits["timestamp"][i]),
-            "board": int(hits["board"][i]) if "board" in hits else 0,
-            "channel": int(hits["channel"][i]),
-            "record_id": int(hits["record_id"][i]),
-        }
-
+    """One merged row of a cluster of two or more hits (reference:
+    hit_merge.py:256-324); one-hit rows are _single_hit_rows'."""
     heights = np.asarray(hits["height"], dtype=np.float64)[members]
     max_h = float(heights.max())
     cands = members[heights == max_h]
@@ -219,7 +230,6 @@ def _emit_cluster(hits: Dict[str, np.ndarray], members: np.ndarray,
         s_start, s_end, width = -1, -1, -1.0
 
     return {
-        "_members": members,
         "position": int(hits["position"][anchor]),
         "height": max_h,
         "integral": float(np.sum(np.asarray(hits["integral"])[members])),
@@ -243,13 +253,6 @@ _MERGED_FIELDS = [
     ("timestamp", np.int64), ("board", np.int16), ("channel", np.int16),
     ("record_id", np.int64),
 ]
-
-
-def _stack_merged(rows: List[Dict[str, Any]]) -> Dict[str, np.ndarray]:
-    out = {}
-    for name, dtype in _MERGED_FIELDS:
-        out[name] = np.asarray([r[name] for r in rows], dtype=dtype)
-    return out
 
 
 def _empty_merged() -> Dict[str, np.ndarray]:

@@ -151,6 +151,89 @@ def make_synthetic_vx2730_run(
     return os.path.join(str(data_root), run_name)
 
 
+_VX2730_HEADER = b"HEADER LINE 1\nHEADER LINE 2\n"
+
+
+def _ascii_fields(values: np.ndarray, width: int, last: str) -> tuple:
+    """Non-negative ints ``(n, F)`` as ASCII decimal fields: a uint8 cell
+    array ``(n, F, width + 1)`` of right-aligned digits, each field followed
+    by ``;`` (the row's last by ``last``), and the mask of its used bytes."""
+    v = values.astype(np.int64)[..., None] // (10 ** np.arange(width - 1, -1, -1))
+    if np.any(v[..., 0] >= 10):
+        raise ValueError(f"a field has more than {width} digits")
+    cells = np.empty(values.shape + (width + 1,), np.uint8)
+    cells[..., :width] = (v % 10).astype(np.uint8) + ord("0")
+    cells[..., width] = ord(";")
+    cells[:, -1, width] = ord(last)
+    used = np.ones(cells.shape, bool)
+    used[..., :width] = v > 0
+    used[..., width - 1] = True  # a zero field writes "0"
+    return cells, used
+
+
+# every uint16 sample value as its 5-digit field (digits, then ";"): the
+# samples are formatted by one gather from these tables
+_SAMPLE_CELLS, _SAMPLE_USED = (a[:, 0] for a in _ascii_fields(
+    np.arange(1 << 16).reshape(-1, 1), 5, ";"))
+
+
+def write_vx2730_run(
+    data_root: str,
+    run_name: str,
+    waves: np.ndarray,
+    timestamps: np.ndarray,
+    channel: int,
+    n_files: int = 1,
+    board: int = 0,
+    chunk_rows: int = 8192,
+) -> list:
+    """Write one channel of a VX2730 CSV run from arrays, vectorised.
+
+    ``waves`` is ``(n, L)`` int samples in [0, 65535] and ``timestamps`` ``(n,)``
+    non-negative int ps. Rows go in order into ``n_files`` files of equal
+    size, ``{data_root}/{run_name}/RAW/Data_CH{channel}_{i}.CSV``, in the
+    layout of :func:`make_synthetic_vx2730_run` (``;``-separated
+    ``board;channel;timetag;0;0;0;0;samples...``, two header lines on the
+    channel's first file only), byte for byte: the rows are formatted by
+    numpy a block at a time, not by Python per value. Returns the paths.
+    """
+    import os
+
+    waves = np.asarray(waves)
+    timestamps = np.asarray(timestamps, np.int64)
+    n = len(waves)
+    if n % n_files or len(timestamps) != n:
+        raise ValueError("rows must split evenly into n_files, one timestamp per row")
+    if waves.min(initial=0) < 0 or waves.max(initial=0) >= 1 << 16 \
+            or timestamps.min(initial=0) < 0:
+        raise ValueError("samples must lie in [0, 65535] and timestamps be non-negative")
+    raw_dir = os.path.join(str(data_root), run_name, "RAW")
+    os.makedirs(raw_dir, exist_ok=True)
+    per_file = n // n_files
+    paths = []
+    for fi in range(n_files):
+        path = os.path.join(raw_dir, f"Data_CH{channel}_{fi}.CSV")
+        with open(path, "wb") as fh:
+            if fi == 0:
+                fh.write(_VX2730_HEADER)
+            for lo in range(fi * per_file, (fi + 1) * per_file, chunk_rows):
+                hi = min(lo + chunk_rows, (fi + 1) * per_file)
+                m = hi - lo
+                head = np.zeros((m, 7), np.int64)
+                head[:, 0], head[:, 1], head[:, 2] = board, channel, timestamps[lo:hi]
+                samples = waves[lo:hi].astype(np.int64)
+                cells = _SAMPLE_CELLS[samples]
+                cells[:, -1, -1] = ord("\n")
+                parts = [_ascii_fields(head[:, :2], 5, ";"),
+                         _ascii_fields(head[:, 2:], 19, ";"),
+                         (cells, _SAMPLE_USED[samples])]
+                cells = np.concatenate([c.reshape(m, -1) for c, _ in parts], axis=1)
+                used = np.concatenate([u.reshape(m, -1) for _, u in parts], axis=1)
+                fh.write(cells[used].tobytes())
+        paths.append(path)
+    return paths
+
+
 def make_tiny_context(
     tmp_dir: str,
     st_waveforms: Optional[Any] = None,
