@@ -31,7 +31,21 @@ version on the card, and drives the port's main paths:
   the card's tables of a 16,384 run against the port's CPU Context and the
   counts of a 4,096 run against the JAX package's (pinned by
   tests/test_torch_events.py); the grouping ops' device backend against
-  the host backend at 262,144 and 1,048,576 rows; the tutorial.
+  the host backend at 262,144 and 1,048,576 rows; the tutorial;
+- slice 9: records ingest on the same files, ``get_data(run,
+  RECORDS_REQUEST)`` with ``wave_source="records"`` on route A (the
+  defaults: hit on the SG-filtered pool, K2; the rest fused over the pool,
+  K3) and route B (the Butterworth pool through K5, bit for bit against the
+  plain filter on the card, every member fused), each cold and 3 warm
+  runs with the records build's phases, the memory held flat and a
+  profile of route A (device idle share); a build in parts against one
+  part; the card's tables of a 16,384 run against the port's CPU Context
+  and the counts of a 4,096 run against the JAX package's (pinned by
+  tests/test_torch_records.py); the records route from 262,144 V1725
+  records and ``st_waveforms`` with ``device_unpack=True`` against the
+  host walk, bit for bit, both timed; the records sort order and padded
+  matrix, host against device, at 262,144 and 1,048,576 rows; the two
+  records examples.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -178,6 +192,46 @@ REF_INGEST_4096 = {
 }
 # the device-grouping phase's df sizes
 N_GROUPING = (262_144, 1_048_576)
+
+# slice 9: records ingest. The ingest route's files read through the records
+# set (records -> wave_pool / wave_pool_filtered -> RecordsView). "hit" is
+# requested too: no table of the event tail depends on it, and it is the
+# member that reads the filtered pool on route A
+RECORDS_REQUEST = ["df_paired", "hit_grouped", "waveform_width_integral", "hit"]
+RECORDS_ROUTES = {
+    # the defaults: hit on wave_pool_filtered (SG) standalone, the rest fused
+    # over wave_pool
+    "A": {"wave_source": "records"},
+    # the Butterworth bandpass on the pool and every member on it: one
+    # fused program over wave_pool_filtered
+    "B": {"wave_source": "records",
+          "wave_pool_filtered": {"filter_type": "BW", "filter_order": 4,
+                                 "lowcut": 0.002, "highcut": 0.1, "fs": 0.5},
+          **{m: {"use_filtered": True} for m in (
+              "basic_features", "hit_threshold", "waveform_width_integral", "df")}},
+}
+RECORDS_STANDALONE = {"A": {"hit"}, "B": set()}
+RECORDS_TABLES = ("records", "basic_features", "hit", "hit_threshold",
+                  "waveform_width_integral", "df", "df_events", "hit_grouped", "df_paired")
+# the JAX package's default profile on write_ingest_run(..., N_INGEST_REF,
+# seed=0) with each route's config: row counts; route B's records baseline
+# (the raw mean, about 1000 ADC) lies far above the bandpassed pool, so no
+# sample crosses a threshold there. tests/test_torch_records.py recomputes
+# these with JAX
+REF_RECORDS_4096 = {
+    "A": {"records": 4096, "basic_features": 4096, "hit": 4096, "hit_threshold": 6218,
+          "waveform_width_integral": 4096, "df": 4096, "df_events": 2048,
+          "hit_grouped": 2302, "df_paired": 2048},
+    "B": {"records": 4096, "basic_features": 4096, "hit": 0, "hit_threshold": 0,
+          "waveform_width_integral": 4096, "df": 4096, "df_events": 2048,
+          "hit_grouped": 0, "df_paired": 2048},
+}
+RECORDS_PART_SIZE = 32_768  # a partitioned build of the route's files
+N_V1725 = 262_144  # records (two channels per event) of WAVE_LEN samples
+V1725_FILES = 4
+V1725_DT_TICKS = 2_500  # between events (4 ns ticks)
+# the sort and padded-gather primitives' sizes, host against device
+N_PRIMITIVES = (262_144, 1_048_576)
 
 
 def fail(msg: str) -> None:
@@ -402,19 +456,31 @@ def compare_frames(ref, out, tag: str) -> float:
     return worst
 
 
-def compare_ingest(cpu_ctx, gpu_ctx, run: str) -> tuple:
-    """Every INGEST_COMPARED table of ``run``, the card's against the CPU
+def compare_ingest(cpu_ctx, gpu_ctx, run: str, names=INGEST_COMPARED, bw: bool = False) -> tuple:
+    """Every table of ``names`` in ``run``, the card's against the CPU
     Context's: Table fields with their dtypes, integers exactly, floats
-    within ATOL/RTOL and NaN where NaN (the SG waves within SG_RTOL);
-    DataFrames column by column. Returns the largest float |diff| and where
-    it is."""
+    within ATOL/RTOL and NaN where NaN (the filtered waves and pools within
+    SG_RTOL, or BW_WAVE_ATOL with ``bw``); DataFrames column by column;
+    arrays (the pools) with their dtypes. Returns the largest float |diff|
+    and where it is."""
     import pandas as pd
 
     worst = (0.0, "")
-    for name in INGEST_COMPARED:
+    for name in names:
         ref, out = cpu_ctx.get_data(run, name), gpu_ctx.get_data(run, name)
         if isinstance(ref, pd.DataFrame):
             worst = max(worst, (compare_frames(ref, out, f"ingest {name}"), name))
+            continue
+        if isinstance(ref, np.ndarray):
+            check(isinstance(out, np.ndarray) and out.dtype == ref.dtype
+                  and out.shape == ref.shape, f"{name}: {type(out).__name__}")
+            if np.issubdtype(ref.dtype, np.floating):
+                err = float(np.max(np.abs(out.astype(np.float64) - ref), initial=0.0))
+                ok = err <= BW_WAVE_ATOL if bw else bool(
+                    np.isclose(out, ref, rtol=SG_RTOL, atol=0).all())
+                check(ok, f"{name}: the card's pool differs from the CPU's by {err:.3g}")
+            else:
+                check(np.array_equal(out, ref), f"{name}: the card's pool != the CPU's")
             continue
         check(ref.field_names == out.field_names and len(ref) == len(out),
               f"ingest {name}: fields {out.field_names} x {len(out)}")
@@ -425,8 +491,9 @@ def compare_ingest(cpu_ctx, gpu_ctx, run: str) -> tuple:
             if not np.issubdtype(a.dtype, np.floating):
                 check(np.array_equal(a, b), f"{tag}: integer mismatches")
                 continue
-            rtol, atol = (SG_RTOL, 0.0) if (name, f) == ("filtered_waveforms", "wave") \
-                else (RTOL, ATOL)
+            rtol, atol = (RTOL, ATOL)
+            if (name, f) == ("filtered_waveforms", "wave"):
+                rtol, atol = (0.0, BW_WAVE_ATOL) if bw else (SG_RTOL, 0.0)
             check(bool(np.isclose(b, a, rtol=rtol, atol=atol, equal_nan=True).all()),
                   f"{tag}: values outside atol {atol} / rtol {rtol}")
             d = np.abs(b.astype(np.float64) - a)
@@ -486,14 +553,16 @@ def route_phases(ctx) -> dict:
             if k.startswith(keep)}
 
 
-def profile_route(ctx, rid: str, tag: str, smi: str) -> None:
-    """One warm run under torch.profiler: device busy time, idle share and
-    the largest device items (not in the medians)."""
+def profile_route(ctx, rid: str, tag: str, smi: str,
+                  request=("s1_s2", "hit_threshold")) -> set:
+    """One warm run of ``request`` under torch.profiler: device busy time,
+    idle share and the largest device items (not in the medians). Returns
+    the names of the port's kernels on the device timeline."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.get_data(rid, ["s1_s2", "hit_threshold"])
+        ctx.get_data(rid, list(request))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ctx.flush_saves()
@@ -510,6 +579,7 @@ def profile_route(ctx, rid: str, tag: str, smi: str) -> None:
           f"{1 - dev_ms / wall_ms:.3f}; top device ops (ms, calls): "
           f"{[(round(t, 3), c, k[:48]) for t, c, k in rows[:12]]}; the port's kernels "
           f"{ours}", flush=True)
+    return {k for _, _, k in ours}
 
 
 # the device operations that may lie between a channel group's row gather
@@ -612,7 +682,7 @@ def on_card(dev) -> bool:
     return dev.type == "cuda"
 
 
-def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
+def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> tuple:
     """Slice 8's main path: ``get_data(run, INGEST_REQUEST)`` on VX2730
     files of ``n`` waveforms through the default profile, cold and then 3
     warm runs, each on a freshly written run (the write timed apart). Checks
@@ -620,8 +690,11 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
     the first run's st_waveforms equals the written arrays (the baseline the
     float64 mean of its window, exactly), and that the memory allocated
     after each run stays flat. Then the card's tables of an ``n_cpu`` run
-    against the port's CPU Context, and the row counts of an N_INGEST_REF
-    run against the JAX package's. Returns the first run's launch counts."""
+    ("cmp") against the port's CPU Context, and the row counts of an
+    N_INGEST_REF run ("ref") against the JAX package's. The runs are written
+    under ``daq``; the last timed run ("ingest3"), "cmp" and "ref" stay
+    there for the records phase. Returns the first run's launch counts and
+    the last timed run's written waves."""
     import waveformanalysis_tpu_torch as wa
     from waveformanalysis_tpu_torch import native
     from waveformanalysis_tpu_torch.context.context import Context
@@ -636,7 +709,6 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
           and lib_path.parent == ROOT / "build" / "native",
           f"the native CSV decoder did not build into build/native ({lib_path})")
     with tempfile.TemporaryDirectory() as tmp:
-        daq = f"{tmp}/DAQ"
         ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/run", dev.type)
         walls, writes, flushes, phases, held = [], [], [], [], []
         for i in range(4):  # cold, then three warm runs, each on a fresh run
@@ -684,12 +756,13 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
                       f"decoder {lib_path.relative_to(ROOT)}: {len(blob)} bytes in "
                       f"{t_native * 1e3:.1f} ms = {len(blob) / t_native / 1e6:.0f} MB/s "
                       f"(pyarrow engine {t_arrow * 1e3:.1f} ms) on this host", flush=True)
-            del written, res
+            del res
             t0 = time.perf_counter()
             ctx.flush_saves()
             flushes.append(time.perf_counter() - t0)
             held.append(torch.cuda.memory_allocated(dev) if on_card(dev) else 0)
-            shutil.rmtree(Path(daq, run))
+            if i < 3:
+                shutil.rmtree(Path(daq, run))
         keys = ("plugin.raw_files.compute", "st_waveforms.decode", "st_waveforms.structure",
                 "plugin.st_waveforms.compute", "plugin.filtered_waveforms.compute",
                 "fusion.single.load", "fusion.single.upload", "fusion.single.device_program",
@@ -735,7 +808,7 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int) -> dict:
         check(got == REF_INGEST_4096, f"ingest at {N_INGEST_REF}: {got}, JAX reference "
               f"{REF_INGEST_4096}")
         print(f"main path 8 at {N_INGEST_REF}x{WAVE_LEN}: {got} (= JAX reference)", flush=True)
-    return first_launches
+    return first_launches, written
 
 
 def check_ingested(st, written: np.ndarray, n: int, columns, resolve_baseline_window) -> None:
@@ -809,6 +882,391 @@ def tutorial_phase() -> None:
     check("device: cuda" in proc.stdout and bool(paired), "the tutorial did not run on the card")
     print(f"tutorial (python -m waveformanalysis_tpu_torch.examples.tutorial): exit 0 on the "
           f"card; {paired[0][:60]}", flush=True)
+
+
+def records_context(ctx_cls, profile, data_root: str, storage_dir: str, route: str,
+                    device=None, adapter: str = "vx2730"):
+    """ingest_context's Context with RECORDS_ROUTES[route] set (and the DAQ
+    adapter ``adapter``)."""
+    ctx = ingest_context(ctx_cls, profile, data_root, storage_dir, device)
+    if adapter != "vx2730":
+        ctx.set_config({"daq_adapter": adapter})
+    ctx.set_config(RECORDS_ROUTES[route])
+    return ctx
+
+
+def records_counts(ctx, run: str) -> dict:
+    return {m: len(ctx.get_data(run, m)) for m in RECORDS_TABLES}
+
+
+def link_run(daq: str, source: str, run: str) -> str:
+    """A fresh run name whose directory is ``source``'s (a symlink)."""
+    Path(daq, run).symlink_to(Path(daq, source), target_is_directory=True)
+    return run
+
+
+def records_standalone(ctx) -> set:
+    return {m for m in ("basic_features", "hit", "hit_threshold", "waveform_width_integral")
+            if f"plugin.{m}.compute" in ctx.profiler.stats()}
+
+
+def check_records_launches(route: str, got: dict, n_groups: int, tag: str) -> None:
+    """Route A: K2 (the standalone hit) and K3 (the fused hit_threshold);
+    route B: K5 once per channel group, then K2 and K3 in the fused
+    program; no other kernel."""
+    want = {"sosfiltfilt": n_groups if route == "B" else 0}
+    check(got["peaks_scan"] >= 1 and got["hits_scan"] >= 1 and all(
+        got[k] == want.get(k, 0) for k in got if k not in ("peaks_scan", "hits_scan")),
+        f"{tag}: launches {got}, expected K2 and K3{' and K5 x%d' % n_groups if want['sosfiltfilt'] else ''} only")
+
+
+def plain_filtered_pool(ctx, run: str, dev) -> tuple:
+    """wave_pool_filtered of ``run`` recomputed on ``dev`` with the plain
+    zero-phase filter (sosfiltfilt_plain) on each channel group's rows of
+    the pool, as the plugin gathers them; with the group count."""
+    from waveformanalysis_tpu_torch.hardware import group_indices_by_hardware_channel
+    from waveformanalysis_tpu_torch.ops import filtering as flt
+
+    rec, pool = ctx.get_data(run, "records"), ctx.get_data(run, "wave_pool")
+    bw = RECORDS_ROUTES["B"]["wave_pool_filtered"]
+    sos = flt.design_butterworth_sos(bw["filter_order"], bw["lowcut"], bw["highcut"], bw["fs"])
+    out = torch.zeros(len(pool), dtype=torch.float32, device=dev)
+    pool_d = torch.from_numpy(pool.view(np.int16)).to(dev)
+    offsets, lengths = np.asarray(rec["wave_offset"]), np.asarray(rec["event_length"])
+    groups = group_indices_by_hardware_channel(rec["board"], rec["channel"])
+    for idx in groups.values():
+        check(bool(np.all(lengths[idx] == WAVE_LEN)), "records: a record of another length")
+        rows = torch.from_numpy(offsets[idx] // WAVE_LEN).to(dev)
+        waves = (pool_d.view(-1, WAVE_LEN)[rows].to(torch.int32) & 0xFFFF).to(torch.float32)
+        out.view(-1, WAVE_LEN)[rows] = flt.sosfiltfilt_plain(waves, sos)
+    return out.cpu().numpy(), len(groups)
+
+
+# the records phases' profiler phases, in the order the request runs them
+RECORDS_PHASES = (
+    "plugin.raw_files.compute", "records.build", "records.decode", "records.concat",
+    "records.sort", "records.gather", "records.polarity", "plugin.wave_pool_filtered.compute",
+    "wave_pool_filtered.upload", "wave_pool_filtered.gather", "wave_pool_filtered.filter",
+    "wave_pool_filtered.scatter", "wave_pool_filtered.fetch", "plugin.hit.compute",
+    "fusion.single.load", "fusion.single.upload", "fusion.single.device_program",
+    "fusion.single.fetch", "fusion.single.finalize", "plugin.df.compute",
+    "plugin.df_events.compute", "plugin.hit_grouped.compute", "plugin.df_paired.compute",
+    "context.release_device_columns")
+RECORDS_COMPARED = ("records", "wave_pool", "wave_pool_filtered", "basic_features", "hit",
+                    "hit_threshold", "waveform_width_integral", "hit_merged",
+                    "hit_merged_components", "df", "df_events", "hit_grouped", "df_paired")
+
+
+def records_phase(dev, smi: str, kernels: dict, daq: str, written: np.ndarray, n: int,
+                  n_cpu: int) -> dict:
+    """Slice 9's main path: ``get_data(run, RECORDS_REQUEST)`` through the
+    records set on the ingest phase's files of ``n`` waveforms ("ingest3",
+    ``written``), each run a fresh name linked to them; routes A and B, cold
+    and then 3 warm runs each. Checks the launches, the plan (route A: hit
+    alone, route B: every member fused), the first run's pool against the
+    written samples in time order, route B's pool from K5 against the plain
+    filter on the card bit for bit, and the memory allocated after each run,
+    flat; profiles a warm route-A run (device busy time and idle share, K2
+    and K3 on the timeline). Then a build with RECORDS_PART_SIZE parts
+    against the one-part bundle, the card's tables of the ingest phase's
+    ``n_cpu`` run ("cmp") against the port's CPU Context and the counts of
+    its N_INGEST_REF run ("ref") against the JAX package's, on both routes.
+    Returns the first run's launch counts of each route."""
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+
+    # records are in time order: channel 0's row i, then channel 1's row i
+    half = n // 2
+    in_time = np.empty_like(written)
+    in_time[0::2], in_time[1::2] = written[:half], written[half:]
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for route in ("A", "B"):
+            ctx = records_context(Context, get_profile("cuda"), daq, f"{tmp}/{route}", route,
+                                  dev.type)
+            walls, phases, held = [], [], []
+            for i in range(4):
+                run = link_run(daq, "ingest3", f"rec{route}{i}")
+                ctx.profiler.reset()
+                for fn in kernels.values():
+                    fn.launches = 0
+                t0 = time.perf_counter()
+                res = ctx.get_data(run, RECORDS_REQUEST)
+                if on_card(dev):
+                    torch.cuda.synchronize(dev)
+                walls.append(time.perf_counter() - t0)
+                got = {name: fn.launches for name, fn in kernels.items()}
+                stats = ctx.profiler.stats()
+                phases.append({k: v["total_s"] for k, v in stats.items()})
+                if on_card(dev):
+                    check_records_launches(route, got, 2, f"records route {route} {run}")
+                standalone = records_standalone(ctx)
+                check(standalone == RECORDS_STANDALONE[route]
+                      and "fusion.wave_chain.compute" in stats,
+                      f"records route {route}: standalone {standalone}, expected "
+                      f"{RECORDS_STANDALONE[route]} beside one fused program")
+                check(list(res) == RECORDS_REQUEST and len(res["df_paired"]) > 0
+                      and len(res["waveform_width_integral"]) == n,
+                      f"records route {route} {run}: results {[len(v) for v in res.values()]}")
+                if i == 0:
+                    launches[route] = got
+                    pool = ctx.get_data(run, "wave_pool")
+                    check(isinstance(pool, np.ndarray) and pool.dtype == np.uint16
+                          and np.array_equal(pool.view(np.int16).reshape(n, WAVE_LEN), in_time),
+                          f"records route {route}: wave_pool != the written samples in time order")
+                    extra = ""
+                    if route == "B":
+                        plain, n_groups = plain_filtered_pool(ctx, run, dev)
+                        filtered = ctx.get_data(run, "wave_pool_filtered")
+                        check(filtered.dtype == np.float32 and np.array_equal(filtered, plain),
+                              "records route B: wave_pool_filtered from K5 is not bit-equal to "
+                              "the plain filter's on the card")
+                        extra = (f"; wave_pool_filtered ({n_groups} channel groups through K5) "
+                                 f"= the plain filter's on the card, bit for bit")
+                    print(f"main path 9{route.lower()} records {n}x{WAVE_LEN}: get_data("
+                          f"{RECORDS_REQUEST}) launches {got}; standalone {sorted(standalone)}, "
+                          f"the rest in one fused program; tables {records_counts(ctx, run)}; "
+                          f"wave_pool = the written samples in time order{extra}", flush=True)
+                del res
+                ctx.flush_saves()
+                held.append(torch.cuda.memory_allocated(dev) if on_card(dev) else 0)
+            check(max(held) - min(held) <= 16 << 20, f"records route {route}: memory allocated "
+                  f"after each run {held} B is not flat")
+            med = statistics.median(walls[1:])
+            med_ph = {k: round(statistics.median(p.get(k, 0.0) for p in phases[1:]) * 1e3, 1)
+                      for k in RECORDS_PHASES}
+            print(f"route records {route} {n}x{WAVE_LEN} ({smi}): cold {walls[0]:.3f} s; warm "
+                  f"median of 3 {med * 1e3:.1f} ms = {n / med:.0f} waveforms/s (runs "
+                  f"{[round(x * 1e3, 1) for x in walls[1:]]} ms); phases ms {med_ph}; memory "
+                  f"allocated after each run {held} B", flush=True)
+            if route == "A" and on_card(dev):
+                seen = profile_route(ctx, link_run(daq, "ingest3", "recAprof"),
+                                     f"records A {n}x{WAVE_LEN}", smi, RECORDS_REQUEST)
+                check({"peaks_warp_kernel", "hits_warp_kernel"} <= seen,
+                      f"records route A profile: the device timeline shows {seen}, not K2 and K3")
+                ctx.flush_saves()
+            del ctx
+
+        # a partitioned build gives the same bundle (pid, the part index, aside)
+        ctx = records_context(Context, get_profile("cuda"), daq, f"{tmp}/part", "A", dev.type)
+        one = ctx.get_data(link_run(daq, "ingest3", "recP1"), ["records", "wave_pool"])
+        ctx.set_config({"records_part_size": RECORDS_PART_SIZE})
+        parts = ctx.get_data(link_run(daq, "ingest3", "recP2"), ["records", "wave_pool"])
+        for f in one["records"].field_names:
+            a, b = np.asarray(one["records"][f]), np.asarray(parts["records"][f])
+            check(f == "pid" or np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+                  f"records with part size {RECORDS_PART_SIZE}: {f} differs")
+        check(np.array_equal(one["wave_pool"], parts["wave_pool"]),
+              f"records with part size {RECORDS_PART_SIZE}: wave_pool differs")
+        n_parts = len(np.unique(np.asarray(parts["records"]["pid"])))
+        ctx.flush_saves()
+        del ctx, one, parts
+        print(f"main path 9 records {n}x{WAVE_LEN} built in parts of {RECORDS_PART_SIZE} "
+              f"({n_parts} per channel): the same records (pid aside) and wave_pool as one part",
+              flush=True)
+
+        for route in ("A", "B"):
+            gpu = records_context(Context, get_profile("cuda"), daq, f"{tmp}/cmp{route}d", route,
+                                  dev.type)
+            cpu = records_context(Context, get_profile("cuda"), daq, f"{tmp}/cmp{route}c", route,
+                                  "cpu")
+            run = link_run(daq, "cmp", f"rcmp{route}")
+            gpu.get_data(run, RECORDS_REQUEST)
+            t_cpu = time.perf_counter()
+            cpu.get_data(run, RECORDS_REQUEST)
+            t_cpu = time.perf_counter() - t_cpu
+            err, where = compare_ingest(cpu, gpu, run, RECORDS_COMPARED, bw=route == "B")
+            print(f"main path 9{route.lower()} records at {n_cpu}x{WAVE_LEN}: every table of the "
+                  f"request {list(RECORDS_COMPARED)} = the CPU Context's (max |f32 diff| "
+                  f"{err:.3g}, {where}; CPU route {t_cpu:.1f} s); counts "
+                  f"{records_counts(gpu, run)}", flush=True)
+            for c in (gpu, cpu):
+                c.flush_saves()
+            ctx = records_context(Context, get_profile("cuda"), daq, f"{tmp}/ref{route}", route,
+                                  dev.type)
+            run = link_run(daq, "ref", f"rref{route}")
+            ctx.get_data(run, RECORDS_REQUEST)
+            got = records_counts(ctx, run)
+            ctx.flush_saves()
+            check(got == REF_RECORDS_4096[route], f"records route {route} at {N_INGEST_REF}: "
+                  f"{got}, JAX reference {REF_RECORDS_4096[route]}")
+            print(f"main path 9{route.lower()} records at {N_INGEST_REF}x{WAVE_LEN}: {got} "
+                  f"(= JAX reference)", flush=True)
+    return launches
+
+
+def v1725_phase(dev, smi: str, kernels: dict, n: int) -> None:
+    """The records route under the V1725 adapter on ``n`` records (n / 2
+    events of two channels, bench.py's waves, V1725_FILES files written by
+    ``write_v1725_run``): K2 and K3 launched, the pool = the written samples
+    in time order; then ``st_waveforms`` with ``device_unpack=True`` (the
+    unpack on the card) against the host walk, every column bit-identical,
+    both timed."""
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.testing.fixtures import write_v1725_run
+
+    waves = make_batch(n, WAVE_LEN, seed=600)
+    events = n // 2
+    ts = np.arange(events, dtype=np.int64) * V1725_DT_TICKS
+    with tempfile.TemporaryDirectory() as tmp:
+        daq = f"{tmp}/DAQ"
+        t_write = time.perf_counter()
+        write_v1725_run(daq, "v0", n_events=events, n_samples=WAVE_LEN,
+                        waves={0: waves[0::2], 1: waves[1::2]}, timestamps={0: ts, 1: ts + 5},
+                        baselines={0: 1000, 1: 1000}, n_files=V1725_FILES)
+        t_write = time.perf_counter() - t_write
+        size = sum(f.stat().st_size for f in Path(daq, "v0", "RAW").iterdir())
+        ctx = records_context(Context, get_profile("cuda"), daq, f"{tmp}/rec", "A", dev.type,
+                              adapter="v1725")
+        walls = []
+        for i in range(2):
+            run = "v0" if i == 0 else link_run(daq, "v0", "v1")
+            for fn in kernels.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            res = ctx.get_data(run, RECORDS_REQUEST)
+            if on_card(dev):
+                torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+            got = {name: fn.launches for name, fn in kernels.items()}
+            if on_card(dev):
+                check_records_launches("A", got, 2, f"V1725 records route {run}")
+            check(len(res["df_paired"]) > 0 and len(res["waveform_width_integral"]) == n,
+                  f"V1725 records route {run}: results {[len(v) for v in res.values()]}")
+        pool = ctx.get_data("v0", "wave_pool")
+        check(np.array_equal(pool.view(np.int16).reshape(n, WAVE_LEN), waves),
+              "V1725 records: wave_pool != the written samples in time order")
+        counts = records_counts(ctx, "v0")
+        ctx.flush_saves()
+        print(f"main path 9 V1725 records {n}x{WAVE_LEN} ({smi}; {V1725_FILES} files, {size} "
+              f"bytes, written in {t_write:.2f} s): launches {got}; tables {counts}; wave_pool = "
+              f"the written samples in time order; cold {walls[0]:.3f} s, warm "
+              f"{walls[1] * 1e3:.1f} ms = {n / walls[1]:.0f} records/s", flush=True)
+        del ctx, res, pool
+
+        tables, secs = {}, {}
+        for unpack in (False, True):
+            ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/st{unpack}", dev.type)
+            ctx.set_config({"daq_adapter": "v1725", "st_waveforms": {"device_unpack": unpack}})
+            run = link_run(daq, "v0", f"st{int(unpack)}")
+            t0 = time.perf_counter()
+            tables[unpack] = ctx.get_data(run, "st_waveforms")
+            secs[unpack] = (time.perf_counter() - t0,
+                            ctx.profiler.stats()["plugin.st_waveforms.compute"]["total_s"])
+            ctx.flush_saves()
+        host, unpacked = tables[False], tables[True]
+        check(host.field_names == unpacked.field_names and len(host) == len(unpacked) == n,
+              f"V1725 st_waveforms: {unpacked.field_names} x {len(unpacked)}")
+        for f in host.field_names:
+            a, b = np.asarray(host[f]), unpacked[f]
+            check(isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                  and np.array_equal(a, b, equal_nan=a.dtype.kind == "f"),
+                  f"V1725 st_waveforms device_unpack: {f} differs from the host walk")
+        print(f"main path 9 V1725 st_waveforms {n}x{WAVE_LEN}: device_unpack=True (the unpack on "
+              f"{dev.type}) = the host walk on every column, bit for bit; get_data wall / plugin "
+              f"compute: host walk {secs[False][0] * 1e3:.1f} / {secs[False][1] * 1e3:.1f} ms, "
+              f"device unpack {secs[True][0] * 1e3:.1f} / {secs[True][1] * 1e3:.1f} ms "
+              f"(first call of each)", flush=True)
+
+
+def sort_records(n: int, boards: int, seed: int):
+    """A records table's sort keys as the builder concatenates its parts:
+    each (board, channel) time-sorted, 2 channels per board, a tenth of the
+    timestamps shared across channels. With one board the single stable
+    timestamp sort is the order (the fast path); with two, board 1's rows
+    come first, so ties need the five-key fallback."""
+    from waveformanalysis_tpu_torch.dtypes.table import Table
+
+    rng = np.random.default_rng(seed)
+    groups = [(b, c) for b in range(boards)[::-1] for c in range(2)]
+    per = n // len(groups)
+    base = np.cumsum(rng.integers(1, 20_000, per)).astype(np.int64) * 1000
+    ts, board, chan = [], [], []
+    for b, c in groups:
+        own = np.sort(base + rng.integers(0, 5, per) * 1000 * (rng.random(per) > 0.1))
+        ts.append(own)
+        board.append(np.full(per, b, np.int16))
+        chan.append(np.full(per, c, np.int16))
+    return Table({"timestamp": np.concatenate(ts), "pid": np.zeros(per * len(groups), np.int32),
+                  "board": np.concatenate(board), "channel": np.concatenate(chan)},
+                 validate=False)
+
+
+def primitives_phase(dev, smi: str, sizes) -> None:
+    """The records primitives, host against device, at each size: the sort
+    order (``records_sort_order`` against ``records_sort_order_device``) on
+    the builder's part layout (the fast path) and with ties across boards
+    (the five-key fallback); the padded wave matrix (``padded_wave_matrix``,
+    and with its upload, against ``padded_wave_matrix_device``) on a pool of
+    whole WAVE_LEN rows and on a ragged pool (lengths 192..WAVE_LEN). Equal
+    outputs; wall times in turns host, device, device, host after a warm-up."""
+    from waveformanalysis_tpu_torch.data.records_view import RecordsView
+    from waveformanalysis_tpu_torch.dtypes.table import Table
+    from waveformanalysis_tpu_torch.processing.records_builder import (
+        records_sort_order,
+        records_sort_order_device,
+    )
+
+    def sync():
+        if on_card(dev):
+            torch.cuda.synchronize(dev)
+
+    def turns(host_fn, dev_fn):
+        host_fn(), dev_fn(), sync()
+        t = {"host": [], "device": []}
+        out = {}
+        for side in ("host", "device", "device", "host"):
+            t0 = time.perf_counter()
+            out[side] = (host_fn if side == "host" else dev_fn)()
+            sync()
+            t[side].append((time.perf_counter() - t0) * 1e3)
+        return out, {k: round(statistics.mean(v), 2) for k, v in t.items()}
+
+    records_sort_order_device(sort_records(4096, 1, 0), device=dev)
+    for n in sizes:
+        for boards in (1, 2):
+            rec = sort_records(n, boards, seed=n % 997 + boards)
+            out, ms = turns(lambda: records_sort_order(rec),
+                            lambda: records_sort_order_device(rec, device=dev))
+            check(np.array_equal(out["host"], out["device"]),
+                  f"sort order {n} rows, {boards} board(s): device != host")
+            print(f"records sort {n} rows ({boards} board(s), "
+                  f"{'fast path' if boards == 1 else 'five-key fallback'}; {smi}): device = host; "
+                  f"ms, mean of 2 in turns: host {ms['host']}, device {ms['device']}", flush=True)
+        rng = np.random.default_rng(n)
+        for ragged in (False, True):
+            lengths = (rng.integers(192, WAVE_LEN + 1, n) if ragged
+                       else np.full(n, WAVE_LEN)).astype(np.int32)
+            offsets = np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+            pool = rng.integers(0, 1 << 16, int(lengths.sum()), dtype=np.uint16)
+            rec = Table({"wave_offset": offsets, "event_length": lengths,
+                         "record_id": np.arange(n, dtype=np.int64)}, validate=False)
+            view = RecordsView(rec, pool)
+            out, ms = turns(lambda: view.padded_wave_matrix()[0],
+                            lambda: view.padded_wave_matrix_device(device=dev)[0])
+            check(np.array_equal(out["host"], out["device"].cpu().numpy()),
+                  f"padded wave matrix {n} rows: device != host")
+            _, up = turns(lambda: torch.from_numpy(view.padded_wave_matrix()[0]).to(dev),
+                          lambda: None)
+            print(f"records padded matrix {n} rows ({'ragged 192..%d' % WAVE_LEN if ragged else 'whole rows'}"
+                  f", {pool.nbytes} pool bytes; {smi}): device = host; ms, mean of 2 in turns: "
+                  f"host {ms['host']} (with its upload {up['host']}), device (pool upload and "
+                  f"gather) {ms['device']}", flush=True)
+
+
+def examples_phase() -> None:
+    """The port's two records examples, as a user runs them (on the card
+    by default)."""
+    for name in ("records_pipeline_example", "records_view_example"):
+        proc = subprocess.run([sys.executable, "-m", f"waveformanalysis_tpu_torch.examples.{name}"],
+                              capture_output=True, text=True, timeout=600, cwd=ROOT)
+        check(proc.returncode == 0, f"{name} failed: {proc.stderr.strip()[-3000:]}")
+        check("device: cuda" in proc.stdout, f"{name} did not run on the card")
+        last = proc.stdout.strip().splitlines()[-1]
+        print(f"example (python -m waveformanalysis_tpu_torch.examples.{name}): exit 0 on the "
+              f"card; {last[:80]}", flush=True)
 
 
 def main() -> None:
@@ -1310,7 +1768,16 @@ def main() -> None:
             del ctx
 
     # ---- phases 5c-5e: slice 8, the path from DAQ files -----------------
-    ingest_launches = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU)
+    # ---- phases 5f-5i: slice 9, records ingest on the same files ----------
+    with tempfile.TemporaryDirectory() as files:
+        daq = f"{files}/DAQ"
+        ingest_launches, written = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU, daq)
+        records_launches = records_phase(dev, smi, kernels, daq, written, N_INGEST,
+                                         N_INGEST_CPU)
+        del written
+    v1725_phase(dev, smi, kernels, N_V1725)
+    primitives_phase(dev, smi, N_PRIMITIVES)
+    examples_phase()
     grouping_phase(dev, smi, N_GROUPING)
     tutorial_phase()
 
@@ -1741,6 +2208,8 @@ def main() -> None:
             "bound_by": b_by,
             "library_ms": None,  # no PyTorch call computes these functions
             "ingest_launches": ingest_launches[name],  # slice 8's route from files
+            # slice 9's records routes A and B from the same files
+            "records_launches": {r: records_launches[r][name] for r in ("A", "B")},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

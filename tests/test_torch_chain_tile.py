@@ -243,11 +243,11 @@ def test_fused_chain_demo_on_cpu():
 
 
 # JAX facade names whose modules the port does not have yet (ROADMAP
-# Queue 1: records, batching, streaming, multi-device, surface)
+# Queue 1: batching, streaming, multi-device, surface)
 NOT_YET_PORTED = (
     "Chunk", "StreamingPlugin", "StreamingContext", "get_streaming_context",
     "parallel_map", "parallel_apply", "ExecutorManager", "CancellationToken",
-    "DataExporter", "DependencyAnalyzer", "RecordsView", "TimeRangeQueryEngine",
+    "DataExporter", "DependencyAnalyzer",
     "wrap_strax_plugin", "StraxContextAdapter", "PluginLoader", "enable_hot_reload",
     "PluginHotReloader", "CacheManager", "EXECUTOR_CONFIGS", "get_executor",
     "get_executor_manager", "get_config", "register_config", "get_timeout_manager",

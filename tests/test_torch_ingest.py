@@ -10,9 +10,9 @@ column must be equal, exactly.
 Also pinned here: the adapter-inference repair (the port's
 ``config/adapter_info.py`` read a ``formats`` package the port did not
 have, so no option was ever inferred from the DAQ adapter), the
-``device_unpack`` / records / streaming refusals, the default profile's
-difference from the JAX package's ``tpu_default`` (exactly the records
-set), and the native decoder's build directory.
+``device_unpack`` and records set at work and the streaming refusal, the
+default profile = the JAX package's ``tpu_default``, and the native
+decoder's build directory.
 """
 
 from pathlib import Path
@@ -35,7 +35,7 @@ from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
 
 ROOT = Path(__file__).resolve().parents[1]
 ENGINES = ("native", "pyarrow", "pandas", "numpy")
-RECORDS_SET = {"records", "wave_pool", "wave_pool_filtered"}
+RECORDS_SET = ("records", "wave_pool", "wave_pool_filtered")
 
 
 def _vx_run(root: Path, **kw) -> Path:
@@ -265,28 +265,33 @@ def test_st_waveforms_options_match_jax(tmp_path):
 
 
 def test_device_unpack_records_and_streaming_raise(tmp_path):
-    """The V1725 device unpack, the records set and the streaming profile
-    are not ported: each raises NotImplementedError naming its ROADMAP item,
-    never falling back to the host walk."""
+    """The V1725 device unpack and the records set are ported (slice 9):
+    the unpack gives the host walk's st_waveforms and the records set its
+    three plugins. The streaming profile is not ported: it raises
+    NotImplementedError naming its ROADMAP item."""
     run = _v1725_run(tmp_path / "DAQ", n_events=4)
     _, tctx = _contexts(tmp_path, run.parent, "v1725", {"st_waveforms": {"device_unpack": True}})
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        tctx.get_data("run_bin", "st_waveforms")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        tsets.get_plugin_set("records")
+    _, host = _contexts(tmp_path / "host", run.parent, "v1725")
+    _same_table(host.get_data("run_bin", "st_waveforms"), tctx.get_data("run_bin", "st_waveforms"),
+                "device_unpack")
+    assert [p.provides for p in tsets.get_plugin_set("records")] == [
+        p.provides for p in jsets.get_plugin_set("records")] == list(RECORDS_SET)
     for name in ("streaming", "streaming_default"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
             tsets.get_profile(name)
 
 
 def test_default_profile_is_tpu_default_minus_records():
+    """The default profile registers the JAX package's tpu_default plugins,
+    in the same order: since slice 9 the records set is no longer left
+    out."""
     jax_provides = [p.provides for p in jsets.tpu_default()]
     for name in ("cuda", "cuda_default", "default", "cpu", "cpu_default"):
         provides = [p.provides for p in tsets.get_profile(name)]
-        assert provides == [p for p in jax_provides if p not in RECORDS_SET], name
-    assert set(jax_provides) - set(provides) == RECORDS_SET
+        assert provides == jax_provides, name
+    assert set(RECORDS_SET) <= set(provides)
     assert [type(p).__name__ for p in tsets.cuda_default()] == [
-        type(p).__name__ for p in jsets.tpu_default() if p.provides not in RECORDS_SET]
+        type(p).__name__ for p in jsets.tpu_default()]
     for name in ("tpu", "jax", "jax_accel"):
         with pytest.raises(KeyError):
             tsets.get_profile(name)

@@ -46,6 +46,12 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.ops.grouping",
     "waveformanalysis_tpu_torch.ops.grouping_device",
     "waveformanalysis_tpu_torch.examples.tutorial",
+    "waveformanalysis_tpu_torch.data.records_view",
+    "waveformanalysis_tpu_torch.data.query",
+    "waveformanalysis_tpu_torch.plugins.builtin.records",
+    "waveformanalysis_tpu_torch.ops.v1725_device",
+    "waveformanalysis_tpu_torch.examples.records_pipeline_example",
+    "waveformanalysis_tpu_torch.examples.records_view_example",
 )
 
 
@@ -70,7 +76,8 @@ def test_port_imports_without_jax():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert set(KEY_MODULES) <= set(result["modules"])
     assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context", "get_profile",
-            "cuda_default", "get_adapter", "group_multi_channel_hits"} <= set(result["names"])
+            "cuda_default", "get_adapter", "group_multi_channel_hits", "RecordsView",
+            "TimeRangeQueryEngine"} <= set(result["names"])
     assert result["leaked"] == []
 
 

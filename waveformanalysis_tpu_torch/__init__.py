@@ -44,7 +44,11 @@ Ported so far:
   ``df_events`` / ``hit_grouped`` -> ``df_paired`` under the default
   profile (``ctx.register(*get_profile("cuda"))``), the event grouping
   (``group_multi_channel_hits``) and the tutorial
-  (``python -m waveformanalysis_tpu_torch.examples.tutorial``).
+  (``python -m waveformanalysis_tpu_torch.examples.tutorial``);
+- slice 9, records ingest: the records set (``records``, ``wave_pool``,
+  ``wave_pool_filtered``) in the default profile, ``wave_source="records"``
+  on the feature plugins, ``RecordsView`` and ``TimeRangeQueryEngine``,
+  and the V1725 device unpack (``st_waveforms.device_unpack=True``).
 """
 
 from __future__ import annotations
@@ -100,6 +104,9 @@ _LAZY_API = {
     "cuda_default": (_P + "plugins.plugin_sets", "cuda_default"),
     "get_profile": (_P + "plugins.plugin_sets", "get_profile"),
     "group_multi_channel_hits": (_P + "ops.grouping", "group_multi_channel_hits"),
+    # records
+    "RecordsView": (_P + "data.records_view", "RecordsView"),
+    "TimeRangeQueryEngine": (_P + "data.query", "TimeRangeQueryEngine"),
     # foundation
     "Profiler": (_P + "foundation.profiler", "Profiler"),
     "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),

@@ -12,10 +12,10 @@ host CPU's instruction-set flags (the build uses ``-march=native``), so an
 edited source or another CPU builds anew and an unchanged one is reused.
 
 Currently: ``csv_decode`` -- one-pass delimited-numeric decoder used by the
-VX2730 reader (see csv_decode.cpp for the rationale and the C ABI). The
-library's typed VX2730 and V1725 entries serve the records build and the
-V1725 device unpack; their bindings come with those (ROADMAP.md Queue 1,
-item 4).
+VX2730 reader (see csv_decode.cpp for the rationale and the C ABI), its
+typed single-pass VX2730 entry (the records build's parts), and the V1725
+binary decoder and header-only walk (the records build from V1725 files
+and the V1725 device unpack, ``ops/v1725_device.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 
@@ -120,6 +120,39 @@ def get_lib() -> Optional[ctypes.CDLL]:
                 ctypes.c_char, ctypes.c_longlong, ctypes.c_longlong,
                 ctypes.POINTER(ctypes.c_double),
             ]
+            lib.wfa_csv_decode_typed.restype = ctypes.c_longlong
+            lib.wfa_csv_decode_typed.argtypes = [
+                ctypes.c_char_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_char, ctypes.c_longlong, ctypes.c_longlong,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_uint16),
+            ]
+            lib.wfa_v1725_scan.restype = ctypes.c_longlong
+            lib.wfa_v1725_scan.argtypes = [
+                ctypes.c_char_p, ctypes.c_longlong,
+                ctypes.POINTER(ctypes.c_longlong),
+            ]
+            v1725_columns = [
+                ctypes.POINTER(ctypes.c_int16),
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.POINTER(ctypes.c_uint8),
+                ctypes.POINTER(ctypes.c_longlong),
+                ctypes.POINTER(ctypes.c_int32),
+            ]
+            lib.wfa_v1725_decode.restype = ctypes.c_longlong
+            lib.wfa_v1725_decode.argtypes = [
+                ctypes.c_char_p, ctypes.c_longlong, *v1725_columns,
+                ctypes.POINTER(ctypes.c_uint16),
+            ]
+            lib.wfa_v1725_headers.restype = ctypes.c_longlong
+            lib.wfa_v1725_headers.argtypes = [
+                ctypes.c_char_p, ctypes.c_longlong, *v1725_columns,
+            ]
             _lib, _lib_path = lib, path
         except (OSError, AttributeError) as err:
             logger.warning("native load failed: %s", err)
@@ -158,3 +191,122 @@ def decode_csv_bytes(data: bytes, skip_rows: int = 0,
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
     )
     return out[:got]
+
+
+def decode_csv_vx2730_typed(
+    data: bytes,
+    skip_rows: int = 0,
+    delimiter: str = ";",
+    samples_start: int = 7,
+    baseline_start: int = 7,
+    baseline_end: int = 47,
+) -> Optional[dict]:
+    """Typed single-pass VX2730 decode (see wfa_csv_decode_typed).
+
+    Returns {board i16, channel i16, timestamp i64, baseline f8,
+    samples u16 (n, L)} or None when the native library is unavailable OR
+    the file contains anomalies the strict typed parser rejects -- the
+    caller then falls back to :func:`decode_csv_bytes` + the generic part
+    builder, preserving bit-parity on weird inputs.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    n = len(data)
+    if n == 0:
+        return {"board": np.zeros(0, np.int16), "channel": np.zeros(0, np.int16),
+                "timestamp": np.zeros(0, np.int64),
+                "baseline": np.zeros(0, np.float64),
+                "samples": np.zeros((0, 0), np.uint16)}
+    ncols = ctypes.c_longlong(0)
+    delim = delimiter.encode()[:1]
+    rows = lib.wfa_csv_shape(data, n, skip_rows, delim, ctypes.byref(ncols))
+    if rows <= 0 or ncols.value <= samples_start:
+        return None  # unusual shape: let the generic path handle it
+    n_samples = ncols.value - samples_start
+    board = np.empty(rows, dtype=np.int16)
+    channel = np.empty(rows, dtype=np.int16)
+    timestamp = np.empty(rows, dtype=np.int64)
+    baseline = np.empty(rows, dtype=np.float64)
+    samples = np.empty((rows, n_samples), dtype=np.uint16)
+    got = lib.wfa_csv_decode_typed(
+        data, n, skip_rows, delim, ncols.value, rows,
+        samples_start, baseline_start, baseline_end,
+        _ptr(board, ctypes.c_int16), _ptr(channel, ctypes.c_int16),
+        _ptr(timestamp, ctypes.c_longlong), _ptr(baseline, ctypes.c_double),
+        _ptr(samples, ctypes.c_uint16),
+    )
+    if got < 0:
+        return None  # anomaly: strict parser rejected, use the generic path
+    return {
+        "board": board[:got], "channel": channel[:got],
+        "timestamp": timestamp[:got], "baseline": baseline[:got],
+        "samples": samples[:got],
+    }
+
+
+def _ptr(arr: np.ndarray, ctype: Any) -> Any:
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _v1725_columns(records: int) -> dict:
+    return {
+        "channel": np.empty(records, dtype=np.int16),
+        "timestamp": np.empty(records, dtype=np.int64),
+        "baseline": np.empty(records, dtype=np.float64),
+        "trunc": np.empty(records, dtype=np.uint8),
+        "offset": np.empty(records, dtype=np.int64),
+        "n_samples": np.empty(records, dtype=np.int32),
+    }
+
+
+def _v1725_pointers(cols: dict) -> tuple:
+    return (_ptr(cols["channel"], ctypes.c_int16), _ptr(cols["timestamp"], ctypes.c_longlong),
+            _ptr(cols["baseline"], ctypes.c_double), _ptr(cols["trunc"], ctypes.c_uint8),
+            _ptr(cols["offset"], ctypes.c_longlong), _ptr(cols["n_samples"], ctypes.c_int32))
+
+
+def scan_v1725_headers_bytes(data: bytes) -> Optional[dict]:
+    """Header-only V1725 walk: per-record metadata + sample BYTE offsets.
+
+    No samples are copied -- the device-unpack path uploads ``data`` once
+    and gathers on the device (ops/v1725_device.py). Same truncation
+    semantics as the full decoder; None when the library is unavailable.
+    Keys: channel i16, timestamp i64, baseline f8, trunc u8, offset i64,
+    n_samples i32.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    total_samples = ctypes.c_longlong(0)
+    records = lib.wfa_v1725_scan(data, len(data), ctypes.byref(total_samples))
+    cols = _v1725_columns(records)
+    if records:
+        got = lib.wfa_v1725_headers(data, len(data), *_v1725_pointers(cols))
+        assert got == records, (got, records)
+    return cols
+
+
+def decode_v1725_bytes(data: bytes) -> Optional[dict]:
+    """Decode one V1725 DAW_DEMO binary buffer to columnar arrays.
+
+    Returns {channel i16, timestamp i64, baseline f8, trunc u8,
+    wave_offset i64, event_length i32, wave_pool u16} or None when the
+    native library is unavailable. Bit-identical to the Python reader
+    (formats/v1725.py), including stop-at-malformed-tail behavior.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    total_samples = ctypes.c_longlong(0)
+    records = lib.wfa_v1725_scan(data, len(data), ctypes.byref(total_samples))
+    cols = _v1725_columns(records)
+    pool = np.empty(total_samples.value, dtype=np.uint16)
+    if records:
+        got = lib.wfa_v1725_decode(data, len(data), *_v1725_pointers(cols),
+                                   _ptr(pool, ctypes.c_uint16))
+        assert got == records, (got, records)
+    cols["wave_offset"] = cols.pop("offset")
+    cols["event_length"] = cols.pop("n_samples")
+    cols["wave_pool"] = pool
+    return cols

@@ -10,7 +10,8 @@ Port of ``waveformanalysis_tpu/ops/widths.py`` (``_width_for_positions``,
   first sample in [peak, L) with corrected <= thr; optional linear
   interpolation; rows whose corrected peak value <= 0 are not valid.
 - integral quantile: x = max(signal, 0); t_q = searchsorted(cumsum(x),
-  q * total, side='left').
+  q * total, side='left'), with the float32 prefix sums associated as the
+  JAX package's XLA build on the CPU associates them (:func:`cumsum_xla`).
 
 The baseline is the window's sum divided by its count, as ``jnp.mean``
 computes it (torch's CUDA ``mean`` multiplies by 1/n, which can round
@@ -22,8 +23,13 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 KERNEL_VERSION = "widths-v1"
+
+# XLA's CPU build rewrites a cumulative sum into blocks of this many
+# samples (see cumsum_xla)
+_SCAN_BLOCK = 16
 
 _BASELINE_SAMPLES = 50
 
@@ -224,6 +230,37 @@ def width_from_peak_slots_scan(
     }
 
 
+def _cumsum_left(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sums along the last dim, added left to right."""
+    cols = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        cols.append(cols[-1] + x[..., k])
+    return torch.stack(cols, dim=-1)
+
+
+def cumsum_xla(x: torch.Tensor) -> torch.Tensor:
+    """Float32 prefix sums of each row of ``x`` (n, L), associated as the
+    JAX package's ``jnp.cumsum`` runs on the CPU, bit for bit.
+
+    XLA rewrites the cumulative sum into blocks of 16 samples: each block
+    is summed left to right, the blocks' totals are scanned the same way
+    (recursively), and each block adds the total of the blocks before it.
+    ``torch.cumsum`` associates differently on the CPU and on CUDA, and a
+    prefix sum within a rounding step of a quantile target then moves
+    that target's crossing by a sample. Spelled out in elementwise adds,
+    the order is the same on every device.
+    """
+    n, L = x.shape
+    if L <= _SCAN_BLOCK:
+        return _cumsum_left(x) if L else x.clone()
+    nb = -(-L // _SCAN_BLOCK)
+    blocks = F.pad(x, (0, nb * _SCAN_BLOCK - L)).view(n, nb, _SCAN_BLOCK)
+    inner = _cumsum_left(blocks)
+    totals = cumsum_xla(inner[:, :, -1].contiguous())
+    carry = torch.cat([torch.zeros_like(totals[:, :1]), totals[:, :-1]], dim=1)
+    return (inner + carry[:, :, None]).reshape(n, nb * _SCAN_BLOCK)[:, :L]
+
+
 def integral_quantile_width(
     signal: torch.Tensor,
     valid_length: torch.Tensor,
@@ -239,7 +276,7 @@ def integral_quantile_width(
     n, L = x.shape
     pos = torch.arange(L, device=x.device, dtype=torch.int32)[None, :]
     x = torch.where(pos < valid_length[:, None], x, 0.0)
-    csum = torch.cumsum(x, dim=1)
+    csum = cumsum_xla(x)
     q_total = csum[:, -1]
     ok = (q_total > 0) & torch.isfinite(q_total)
 

@@ -55,7 +55,7 @@ class WaveInput:
     spec: WaveInputSpec
     waveform_data: Optional[Table] = None  # flat-array sources
     records: Optional[Table] = None  # records source
-    records_view: Optional[Any] = None  # records source (not ported yet)
+    records_view: Optional[Any] = None  # records source (data/records_view.RecordsView)
 
 
 def resolve_wave_input_spec(context: Any, plugin: Any) -> WaveInputSpec:
@@ -99,10 +99,14 @@ def load_wave_input(
     """Load the selected wave input, normalizing to Table."""
     spec = resolve_wave_input_spec(context, plugin)
     if spec.is_records:
-        raise NotImplementedError(
-            "the records / wave_pool wave source is not ported to the "
-            "PyTorch package yet (ROADMAP.md, port queue); use st_waveforms"
-        )
+        records = _as_table(context.get_data(run_id, "records"))
+        view = None
+        if needs_wave_samples:
+            from waveformanalysis_tpu_torch.data.records_view import RecordsView
+
+            wave_pool = context.get_data(run_id, spec.wave_pool_name)
+            view = RecordsView(records, wave_pool)
+        return WaveInput(spec=spec, records=records, records_view=view)
 
     data = context.get_data(run_id, spec.expected_name)
     return WaveInput(spec=spec, waveform_data=_as_table(data))

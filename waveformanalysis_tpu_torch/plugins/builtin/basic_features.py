@@ -166,43 +166,67 @@ class BasicFeaturesPlugin(Plugin):
         )
 
     def load_input(self, context: Any, run_id: str) -> Optional[dict]:
-        """Waves + metadata from the configured flat-array source.
+        """Waves + metadata from the configured source (records or flat).
 
         Returns None for the empty input; otherwise a dict with wave matrix,
         event_length, raw baselines, polarity codes and identity columns.
         """
         wave_input = load_wave_input(context, self, run_id, needs_wave_samples=True)
-        data = wave_input.waveform_data
-        if data is None:
-            raise ValueError(
-                f"basic_features failed to load {wave_input.spec.expected_name}"
+        if wave_input.spec.is_records:
+            records = wave_input.records
+            rv = wave_input.records_view
+            if records is None or rv is None:
+                raise ValueError(
+                    "basic_features failed to load records_view for records source"
+                )
+            n = len(records)
+            if n == 0:
+                return None
+            # float32 keeps a FILTERED (f32) pool exact; raw uint16 pools
+            # are exactly representable in f32 too
+            waves, event_length = rv.padded_wave_matrix(dtype=np.float32)
+            boards = np.asarray(records["board"]) if "board" in records \
+                else np.zeros(n, np.int16)
+            channels = np.asarray(records["channel"]) if "channel" in records \
+                else np.zeros(n, np.int16)
+            pol = (
+                np.asarray(records["polarity"]).astype(np.int8)
+                if "polarity" in records else np.full(n, -1, np.int8)
             )
-        n = len(data)
-        if n == 0:
-            return None
-        waves = wave_matrix_view(data["wave"])
-        event_length = (
-            np.asarray(data["event_length"], dtype=np.int32)
-            if "event_length" in data
-            else np.full(n, waves.shape[1], dtype=np.int32)
-        )
-        boards = (
-            np.asarray(data["board"]) if "board" in data
-            else np.zeros(n, dtype=np.int16)
-        )
-        channels = (
-            np.asarray(data["channel"]) if "channel" in data
-            else np.zeros(n, dtype=np.int16)
-        )
-        pol = (
-            np.asarray(data["polarity"]).astype(np.int8)
-            if "polarity" in data else np.full(n, -1, dtype=np.int8)
-        )
-        baselines = np.asarray(data["baseline"], dtype=np.float64)
-        timestamps = (
-            np.asarray(data["timestamp"], dtype=np.int64)
-            if "timestamp" in data else np.zeros(n, dtype=np.int64)
-        )
+            baselines = np.asarray(records["baseline"], dtype=np.float64)
+            timestamps = np.asarray(records["timestamp"], dtype=np.int64)
+        else:
+            data = wave_input.waveform_data
+            if data is None:
+                raise ValueError(
+                    f"basic_features failed to load {wave_input.spec.expected_name}"
+                )
+            n = len(data)
+            if n == 0:
+                return None
+            waves = wave_matrix_view(data["wave"])
+            event_length = (
+                np.asarray(data["event_length"], dtype=np.int32)
+                if "event_length" in data
+                else np.full(n, waves.shape[1], dtype=np.int32)
+            )
+            boards = (
+                np.asarray(data["board"]) if "board" in data
+                else np.zeros(n, dtype=np.int16)
+            )
+            channels = (
+                np.asarray(data["channel"]) if "channel" in data
+                else np.zeros(n, dtype=np.int16)
+            )
+            pol = (
+                np.asarray(data["polarity"]).astype(np.int8)
+                if "polarity" in data else np.full(n, -1, dtype=np.int8)
+            )
+            baselines = np.asarray(data["baseline"], dtype=np.float64)
+            timestamps = (
+                np.asarray(data["timestamp"], dtype=np.int64)
+                if "timestamp" in data else np.zeros(n, dtype=np.int64)
+            )
         # unknown polarity falls back to negative (reference behavior)
         pol = np.where(pol == 0, np.int8(-1), pol)
         return {

@@ -312,13 +312,36 @@ class HitFinderPlugin(Plugin):
 def _load_wave_matrix(
     context: Any, plugin: Plugin, run_id: str, keep_integer_waves: bool = False
 ):
-    """(waves, lengths, meta columns) from the configured flat-array source.
+    """(waves, lengths, meta columns) from the configured wave source.
 
-    ``keep_integer_waves`` is the records source's option to keep its native
-    integer dtype; that source is not ported, and flat sources always keep
-    the wave column's dtype.
+    ``keep_integer_waves`` keeps the records wave matrix in its native
+    integer dtype (the fused executor uploads it once and casts on device);
+    the default preserves the standalone plugins' float32 load. Flat
+    sources always keep the wave column's dtype.
     """
     wave_input = load_wave_input(context, plugin, run_id, needs_wave_samples=True)
+    if wave_input.spec.is_records:
+        records = wave_input.records
+        rv = wave_input.records_view
+        # a FILTERED pool is float32 — an int16 "native" cast would floor
+        # the filtered samples (use_filtered + wave_source=records)
+        int_pool = rv.wave_pool.dtype.kind in "iu"
+        waves, lengths = rv.padded_wave_matrix(
+            dtype=np.int16 if (keep_integer_waves and int_pool) else np.float32
+        )
+        n = len(records)
+        meta = {
+            "baseline": np.asarray(records["baseline"], dtype=np.float64),
+            "polarity": np.asarray(records["polarity"], dtype=np.int8)
+            if "polarity" in records else np.full(n, -1, np.int8),
+            "timestamp": np.asarray(records["timestamp"], dtype=np.int64),
+            "board": np.asarray(records["board"], dtype=np.int16),
+            "channel": np.asarray(records["channel"], dtype=np.int16),
+            "record_id": np.asarray(records["record_id"], dtype=np.int64),
+            "dt": np.asarray(records["dt"], dtype=np.int64) if "dt" in records else None,
+        }
+        return waves, lengths.astype(np.int64), meta
+
     data = wave_input.waveform_data
     n = len(data)
     waves = wave_matrix_view(data["wave"])

@@ -140,26 +140,35 @@ class WaveformWidthIntegralPlugin(Plugin):
         q_low, q_high, dt = cfg["q_low"], cfg["q_high"], cfg["dt"]
 
         wave_input = load_wave_input(context, self, run_id, needs_wave_samples=True)
-        data = wave_input.waveform_data
-        n = len(data)
-        if n == 0:
-            return Table.zeros(0, WAVEFORM_WIDTH_INTEGRAL_SCHEMA)
-        waves = np.asarray(data["wave"]).astype(np.float32)
-        baseline = np.asarray(data["baseline"], dtype=np.float64) \
-            if "baseline" in data else np.zeros(n)
-        pol = np.asarray(data["polarity"], dtype=np.int8) \
-            if "polarity" in data else np.full(n, -1, np.int8)
-        sign = np.where(pol > 0, 1.0, -1.0).astype(np.float32)
-        signal = sign[:, None] * (waves - baseline[:, None].astype(np.float32))
-        lengths = (
-            np.asarray(data["event_length"], dtype=np.int32)
-            if "event_length" in data
-            else np.full(n, waves.shape[1], np.int32)
-        )
+        if wave_input.spec.is_records:
+            records = wave_input.records
+            rv = wave_input.records_view
+            if len(records) == 0:
+                return Table.zeros(0, WAVEFORM_WIDTH_INTEGRAL_SCHEMA)
+            signal, lengths = rv.signal_matrix()
+            meta = records
+        else:
+            data = wave_input.waveform_data
+            n = len(data)
+            if n == 0:
+                return Table.zeros(0, WAVEFORM_WIDTH_INTEGRAL_SCHEMA)
+            waves = np.asarray(data["wave"]).astype(np.float32)
+            baseline = np.asarray(data["baseline"], dtype=np.float64) \
+                if "baseline" in data else np.zeros(n)
+            pol = np.asarray(data["polarity"], dtype=np.int8) \
+                if "polarity" in data else np.full(n, -1, np.int8)
+            sign = np.where(pol > 0, 1.0, -1.0).astype(np.float32)
+            signal = sign[:, None] * (waves - baseline[:, None].astype(np.float32))
+            lengths = (
+                np.asarray(data["event_length"], dtype=np.int32)
+                if "event_length" in data
+                else np.full(n, waves.shape[1], np.int32)
+            )
+            meta = data
 
         dev = context.device
         out = WD.integral_quantile_width(
             to_device(signal, dev), to_device(np.asarray(lengths, np.int32), dev),
             q_low=q_low, q_high=q_high,
         )
-        return self.finalize(cfg, out, data, len(lengths))
+        return self.finalize(cfg, out, meta, len(lengths))

@@ -12,11 +12,13 @@ Behavioral analog of the reference waveform plugins
   sequential record_id after per-channel concatenation.
 
 Port of ``waveformanalysis_tpu/plugins/builtin/waveforms.py``: the parse
-and structuring run on the host in all three paths (the threaded per-file
-flat parse, ``streaming_mode`` and the V1725 host walk). The V1725 device
-unpack (``device_unpack=True``) is ROADMAP.md Queue 1, item 4, and raises
-here. The options' help strings are the JAX package's, word for word: they
-feed the plugin spec hash in the lineage, so the cache keys match.
+and structuring run on the host in the threaded per-file flat parse,
+``streaming_mode`` and the V1725 host walk; with ``device_unpack=True`` a
+V1725 run's samples unpack on the Context's device (ops/v1725_device.py).
+The options' help strings are the JAX package's, word for word: they feed
+the plugin spec hash, so the cache keys match the JAX package's
+(``device_unpack``'s still names the JAX build's jitted gather; the port's
+is a torch gather on the Context's device).
 """
 
 from __future__ import annotations
@@ -276,19 +278,17 @@ class WaveformsPlugin(Plugin):
                                wave_length=wave_length or 1)
 
         if adapter_name == "v1725":
-            if context.get_config(self, "device_unpack"):
-                raise NotImplementedError(
-                    "st_waveforms device_unpack=True (the V1725 device unpack, "
-                    "ops/v1725_device.py) is not ported to the PyTorch package "
-                    "yet (ROADMAP.md Queue 1, item 4: records ingest); use the "
-                    "host walk (device_unpack=False)"
-                )
             if context.get_config(self, "streaming_mode"):
                 logger.info(
                     "streaming_mode: V1725 uses the header-scan builder "
                     "(already near-minimal residency); materialized path"
                 )
-            table = self._compute_v1725(adapter, raw_files, dt_ns, wave_length)
+            if context.get_config(self, "device_unpack"):
+                table = self._compute_v1725_device(
+                    adapter, raw_files, dt_ns, wave_length, context.device
+                )
+            else:
+                table = self._compute_v1725(adapter, raw_files, dt_ns, wave_length)
             return apply_polarity_metadata(table, context, run_id)
 
         if context.get_config(self, "streaming_mode"):
@@ -531,6 +531,63 @@ class WaveformsPlugin(Plugin):
         wave.flush()
         out_cols["wave"] = wave
         return Table(out_cols, schema=ST_WAVEFORM_SCHEMA)
+
+    def _compute_v1725_device(
+        self,
+        adapter: Any,
+        raw_files: List[List[str]],
+        dt_ns: int,
+        wave_length: Optional[int],
+        device: Any,
+    ) -> Table:
+        """Device-unpacked V1725 path.
+
+        The host walks headers only; a torch gather on ``device`` (the
+        Context's) builds the padded wave matrix there
+        (ops/v1725_device.py). Bit-identical to :meth:`_compute_v1725`
+        (tests/test_torch_v1725_device.py). The wave column stays the
+        device tensor: the fused kernels consume it without re-upload
+        (_wave_source.wave_matrix_view), and the Context moves it to the
+        host when the outermost get_data returns.
+        """
+        from waveformanalysis_tpu_torch.ops.v1725_device import read_files_device
+
+        files, seen = [], set()
+        for group in raw_files:
+            for f in group or []:
+                if f not in seen:
+                    seen.add(f)
+                    files.append(f)
+        waves_d, meta = read_files_device(
+            files, wave_length=wave_length,
+            board_from_path=adapter.format_reader._extract_board_from_path,
+            device=device,
+        )
+        n = len(meta["offset"])
+        if n == 0:
+            return Table.zeros(0, ST_WAVEFORM_SCHEMA,
+                               wave_length=wave_length or 1)
+        ts_ps = adapter.format_spec.normalize_timestamp_to_ps(
+            meta["timestamp"], dt_ns=dt_ns
+        )
+        L = int(waves_d.shape[1])
+        return Table(
+            {
+                "baseline": meta["baseline"],
+                "baseline_upstream": np.full(n, np.nan),
+                "polarity": np.zeros(n, dtype=np.int8),
+                "timestamp": ts_ps.astype(np.int64),
+                "record_id": np.arange(n, dtype=np.int64),
+                "dt": np.full(n, dt_ns, dtype=np.int32),
+                "event_length": np.minimum(meta["n_samples"], L).astype(
+                    np.int32
+                ),
+                "board": meta["board"],
+                "channel": meta["channel"],
+                "wave": waves_d,
+            },
+            schema=ST_WAVEFORM_SCHEMA,
+        )
 
     def _compute_v1725(
         self,

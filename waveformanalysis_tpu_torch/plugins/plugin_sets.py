@@ -7,12 +7,12 @@ profile.
 
 Port of ``waveformanalysis_tpu/plugins/plugin_sets.py``. The default
 profile takes a device-neutral name, ``cuda_default`` (the JAX package's
-``tpu_default``); its device is the Context's (``config["device"]``).
-Until ROADMAP.md Queue 1, item 4 ports them, the profile leaves out the
-records set (``records``, ``wave_pool``, ``wave_pool_filtered``);
-``wave_source="auto"`` never picks records, so no result of the default
-path changes. ``streaming_default`` raises until Queue 1, item 6 ports the
-streaming family. The JAX package's ``jax`` / ``jax_accel`` profiles have
+``tpu_default``, the same plugins in the same order, the records set
+``records``, ``wave_pool``, ``wave_pool_filtered`` among them); its device
+is the Context's (``config["device"]``). ``wave_source="auto"`` never
+picks records: a plugin reads the records pool only when its
+``wave_source`` is ``"records"``. ``streaming_default`` raises until
+ROADMAP.md Queue 1, item 6 ports the streaming family. The JAX package's ``jax`` / ``jax_accel`` profiles have
 no meaning here.
 """
 
@@ -35,10 +35,13 @@ def plugins_waveform() -> List[Any]:
 
 
 def plugins_records() -> List[Any]:
-    raise NotImplementedError(
-        "the records plugin set (records, wave_pool, wave_pool_filtered) is "
-        "not ported to the PyTorch package yet (ROADMAP.md Queue 1, item 4)"
+    from waveformanalysis_tpu_torch.plugins.builtin.records import (
+        RecordsPlugin,
+        WavePoolFilteredPlugin,
+        WavePoolPlugin,
     )
+
+    return [RecordsPlugin(), WavePoolPlugin(), WavePoolFilteredPlugin()]
 
 
 def plugins_peaks() -> List[Any]:
@@ -116,10 +119,9 @@ def get_plugin_set(name: str) -> List[Any]:
 
 def cuda_default() -> List[Any]:
     """The full pipeline on the Context's device (the JAX package's
-    ``tpu_default``, reference analog: profiles.cpu_default), without the
-    records set until it is ported."""
+    ``tpu_default``, reference analog: profiles.cpu_default)."""
     out: List[Any] = []
-    for name in ("io", "waveform", "peaks", "basic_features",
+    for name in ("io", "waveform", "records", "peaks", "basic_features",
                  "classification", "tabular", "events"):
         out.extend(PLUGIN_SETS[name]())
     return out

@@ -9,7 +9,7 @@ so feature plugins can be unit-tested without DAQ decode.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -232,6 +232,75 @@ def write_vx2730_run(
                 fh.write(cells[used].tobytes())
         paths.append(path)
     return paths
+
+
+def write_v1725_run(
+    data_root: str,
+    run_name: str = "run_bin",
+    n_events: int = 4,
+    n_samples: int = 32,
+    board: int = 0,
+    waves: Optional[Dict[int, np.ndarray]] = None,
+    timestamps: Optional[Dict[int, np.ndarray]] = None,
+    baselines: Optional[Dict[int, Any]] = None,
+    n_files: int = 1,
+) -> str:
+    """Write a V1725 (DAW_DEMO binary) run from arrays, vectorised.
+
+    Each event holds the same channels: ``waves`` maps a channel to its
+    ``(n_events, n_samples)`` int16 samples (``n_samples`` even),
+    ``timestamps`` a channel to its ``(n_events,)`` 48-bit timestamps and
+    ``baselines`` a channel to a 16-bit baseline (a scalar or one per
+    event). The events go in order into ``n_files`` files of equal size,
+    ``{data_root}/{run_name}/RAW/test_raw_b{board}_seg{i}.bin``: a 16-byte
+    event header with the channel mask at bytes 4 and 11, then per channel,
+    ascending, a 12-byte header (size in 32-bit words, timestamp, baseline)
+    and the little-endian samples. Without ``waves`` it writes the run of
+    ``tests/utils.py::write_v1725_run``, byte for byte: channel 0 at 900
+    with a 150-count dip at samples 10-13, channel 1 at 1100 with a
+    300-count dip at 12-17, both at timestamp 1000 + 500 i. The events are
+    laid out by one structured numpy array, not by Python per event.
+    Returns the run directory.
+    """
+    import os
+
+    if waves is None:
+        wave0 = np.full(n_samples, 900, dtype=np.int16)
+        wave0[10:14] -= 150
+        wave1 = np.full(n_samples, 1100, dtype=np.int16)
+        wave1[12:18] -= 300
+        waves = {0: np.tile(wave0, (n_events, 1)), 1: np.tile(wave1, (n_events, 1))}
+        ts = 1000 + np.arange(n_events, dtype=np.int64) * 500
+        timestamps = {0: ts, 1: ts}
+        baselines = {0: 900, 1: 1100}
+    timestamps, baselines = timestamps or {}, baselines or {}
+    chans = sorted(waves)
+    if n_samples % 2 or n_events % n_files:
+        raise ValueError("n_samples must be even and events split evenly into n_files")
+    mask = sum(1 << c for c in chans)
+    layout = [("header", np.uint8, 16)] + [
+        (f"c{c}_{part}", dt, k) for c in chans for part, dt, k in (
+            ("size", np.uint8, 3), ("flags", np.uint8, ()), ("ts", "<u4", ()),
+            ("ts_hi", "<u2", ()), ("baseline", "<u2", ()), ("wave", "<i2", n_samples))]
+    events = np.zeros(n_events, dtype=np.dtype(layout))
+    events["header"][:, 4] = mask & 0xFF
+    events["header"][:, 11] = (mask >> 8) & 0xFF
+    size_words = 3 + n_samples // 2
+    for c in chans:
+        events[f"c{c}_size"] = np.frombuffer(
+            (size_words & ((1 << 22) - 1)).to_bytes(3, "little"), np.uint8)
+        ts = np.broadcast_to(np.asarray(timestamps.get(c, 0), np.int64), (n_events,))
+        events[f"c{c}_ts"] = ts & 0xFFFFFFFF
+        events[f"c{c}_ts_hi"] = (ts >> 32) & 0xFFFF
+        events[f"c{c}_baseline"] = np.asarray(baselines.get(c, 0), np.int64) & 0xFFFF
+        events[f"c{c}_wave"] = np.asarray(waves[c], dtype=np.int16)
+    raw = os.path.join(str(data_root), run_name, "RAW")
+    os.makedirs(raw, exist_ok=True)
+    per_file = n_events // n_files
+    for i in range(n_files):
+        with open(os.path.join(raw, f"test_raw_b{board}_seg{i}.bin"), "wb") as fh:
+            fh.write(events[i * per_file:(i + 1) * per_file].tobytes())
+    return os.path.join(str(data_root), run_name)
 
 
 def make_tiny_context(
