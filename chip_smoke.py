@@ -45,7 +45,18 @@ version on the card, and drives the port's main paths:
   records and ``st_waveforms`` with ``device_unpack=True`` against the
   host walk, bit for bit, both timed; the records sort order and padded
   matrix, host against device, at 262,144 and 1,048,576 rows; the two
-  records examples.
+  records examples;
+- slice 10: the batched multi-run path, ``ctx.get_data_batched(runs,
+  names)``: slice 2's request over 16 runs of 65,536 injected waveforms in
+  one fused program (K2, K3 and K4 launched once for the group), every
+  run's tables = per-run ``get_data`` bit for bit, the batched wall against
+  16 per-run calls in turns with the memory held flat and the peak of a
+  call, two 8,192 runs against the port's CPU Context; the ingest request
+  over 4 runs linked to slice 8's files (= per run, timed in turns),
+  ``BatchProcessor`` with the ``device`` executor (``on_error="raise"``)
+  and the thread executor; the batched multi-run demo. Phase 3 holds K2,
+  K3 and K4 on a batched group's matrix too (runs of 256 and 200 samples,
+  zero-length padding rows; K2 and K3 at K = 8, 16 and 32).
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -75,7 +86,6 @@ from __future__ import annotations
 import ctypes
 import json
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -193,6 +203,16 @@ REF_INGEST_4096 = {
 # the device-grouping phase's df sizes
 N_GROUPING = (262_144, 1_048_576)
 
+# slice 10: a batched group's matrix in phase 3 (runs of these events x L,
+# concatenated and padded with zero-length rows to a multiple of the
+# bucket, as WaveChainFusion._dispatch_group lays them out), and the
+# batched phases' sizes
+BATCH_RUNS = ((50_000, 256), (65_536, 200), (17_000, 256))
+BATCH_BUCKET = 4096
+N_BATCH_RUNS = 16  # the batched injected phase: 16 runs of N_EVENTS
+N_BATCH_CPU = 8_192  # two runs of this size against the CPU Context
+N_BATCH_FILE_RUNS = 4  # the batched files phase: 4 runs of N_INGEST
+
 # slice 9: records ingest. The ingest route's files read through the records
 # set (records -> wave_pool / wave_pool_filtered -> RecordsView). "hit" is
 # requested too: no table of the event tail depends on it, and it is the
@@ -232,6 +252,15 @@ V1725_FILES = 4
 V1725_DT_TICKS = 2_500  # between events (4 ns ticks)
 # the sort and padded-gather primitives' sizes, host against device
 N_PRIMITIVES = (262_144, 1_048_576)
+
+
+_T0 = time.perf_counter()
+
+
+def stamp(phase: str) -> None:
+    """The seconds since the script started, after a phase (the script's
+    time budget is read from these lines)."""
+    print(f"elapsed after {phase}: {time.perf_counter() - _T0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -558,11 +587,16 @@ def profile_route(ctx, rid: str, tag: str, smi: str,
     """One warm run of ``request`` under torch.profiler: device busy time,
     idle share and the largest device items (not in the medians). Returns
     the names of the port's kernels on the device timeline."""
+    return profile_call(ctx, lambda: ctx.get_data(rid, list(request)), tag, smi)
+
+
+def profile_call(ctx, call, tag: str, smi: str) -> set:
+    """``call()`` under torch.profiler (see profile_route)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.get_data(rid, list(request))
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ctx.flush_saves()
@@ -685,16 +719,17 @@ def on_card(dev) -> bool:
 def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> tuple:
     """Slice 8's main path: ``get_data(run, INGEST_REQUEST)`` on VX2730
     files of ``n`` waveforms through the default profile, cold and then 3
-    warm runs, each on a freshly written run (the write timed apart). Checks
+    warm runs, each under a fresh run name: the first written (the write
+    timed apart), the others linked to its files (link_run). Checks
     the native decoder, that K2 and K3 and no other kernel launched, that
     the first run's st_waveforms equals the written arrays (the baseline the
     float64 mean of its window, exactly), and that the memory allocated
     after each run stays flat. Then the card's tables of an ``n_cpu`` run
     ("cmp") against the port's CPU Context, and the row counts of an
     N_INGEST_REF run ("ref") against the JAX package's. The runs are written
-    under ``daq``; the last timed run ("ingest3"), "cmp" and "ref" stay
-    there for the records phase. Returns the first run's launch counts and
-    the last timed run's written waves."""
+    under ``daq``; the last timed run ("ingest3", a link to "ingest0"),
+    "cmp" and "ref" stay there for the records phase. Returns the first
+    run's launch counts and the written waves."""
     import waveformanalysis_tpu_torch as wa
     from waveformanalysis_tpu_torch import native
     from waveformanalysis_tpu_torch.context.context import Context
@@ -713,9 +748,12 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> 
         walls, writes, flushes, phases, held = [], [], [], [], []
         for i in range(4):  # cold, then three warm runs, each on a fresh run
             run = f"ingest{i}"
-            t0 = time.perf_counter()
-            written = write_ingest_run(daq, run, n, seed=500 + i)
-            writes.append(time.perf_counter() - t0)
+            if i:  # the same files under a fresh run name (nothing cached for it)
+                link_run(daq, "ingest0", run)
+            else:
+                t0 = time.perf_counter()
+                written = write_ingest_run(daq, run, n, seed=500)
+                writes.append(time.perf_counter() - t0)
             if i == 0:  # the decoder alone on one file in this host's page cache
                 one = sorted(Path(daq, run, "RAW").glob("*.CSV"))[1]
                 blob = one.read_bytes()
@@ -761,8 +799,8 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> 
             ctx.flush_saves()
             flushes.append(time.perf_counter() - t0)
             held.append(torch.cuda.memory_allocated(dev) if on_card(dev) else 0)
-            if i < 3:
-                shutil.rmtree(Path(daq, run))
+            if 0 < i < 3:
+                Path(daq, run).unlink()
         keys = ("plugin.raw_files.compute", "st_waveforms.decode", "st_waveforms.structure",
                 "plugin.st_waveforms.compute", "plugin.filtered_waveforms.compute",
                 "fusion.single.load", "fusion.single.upload", "fusion.single.device_program",
@@ -776,8 +814,8 @@ def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> 
                   for k in keys}
         check(max(held) - min(held) <= 16 << 20, f"ingest route: memory allocated after each "
               f"run {held} B is not flat")
-        print(f"route ingest {n}x{WAVE_LEN} ({smi}): write {[round(x, 2) for x in writes]} s "
-              f"(numpy, apart from the route); cold {walls[0]:.3f} s; warm median of 3 "
+        print(f"route ingest {n}x{WAVE_LEN} ({smi}): write {writes[0]:.2f} s (numpy, apart from "
+              f"the route; the warm runs read the same files under fresh names); cold {walls[0]:.3f} s; warm median of 3 "
               f"{med * 1e3:.1f} ms = {n / med:.0f} waveforms/s (runs "
               f"{[round(x * 1e3, 1) for x in walls[1:]]} ms); phases ms {med_ph}; flush_saves "
               f"median {statistics.median(flushes[1:]) * 1e3:.1f} ms; memory allocated after "
@@ -1257,9 +1295,9 @@ def primitives_phase(dev, smi: str, sizes) -> None:
 
 
 def examples_phase() -> None:
-    """The port's two records examples, as a user runs them (on the card
-    by default)."""
-    for name in ("records_pipeline_example", "records_view_example"):
+    """The port's two records examples and the batched multi-run demo, as
+    a user runs them (on the card by default)."""
+    for name in ("records_pipeline_example", "records_view_example", "batched_multirun_demo"):
         proc = subprocess.run([sys.executable, "-m", f"waveformanalysis_tpu_torch.examples.{name}"],
                               capture_output=True, text=True, timeout=600, cwd=ROOT)
         check(proc.returncode == 0, f"{name} failed: {proc.stderr.strip()[-3000:]}")
@@ -1267,6 +1305,402 @@ def examples_phase() -> None:
         last = proc.stdout.strip().splitlines()[-1]
         print(f"example (python -m waveformanalysis_tpu_torch.examples.{name}): exit 0 on the "
               f"card; {last[:80]}", flush=True)
+
+
+def check_identical(ref, out, tag: str) -> None:
+    """Two tables bit for bit: Table fields, or DataFrame columns (per-event
+    array cells one by one), with their dtypes; NaN where NaN."""
+    import pandas as pd
+
+    def same(a, b) -> bool:
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+
+    if isinstance(ref, pd.DataFrame):
+        check(isinstance(out, pd.DataFrame) and list(out.columns) == list(ref.columns)
+              and list(out.dtypes) == list(ref.dtypes) and len(out) == len(ref),
+              f"{tag}: columns, dtypes or length differ")
+        for col in ref.columns:
+            if ref[col].dtype == object and len(ref):
+                # per-event array cells: their lengths, their dtypes, and
+                # the values of all cells at once
+                cells = [[np.asarray(c) for c in side] for side in (ref[col], out[col])]
+                ok = ([c.size for c in cells[0]] == [c.size for c in cells[1]]
+                      and {c.dtype for c in cells[0]} == {c.dtype for c in cells[1]}
+                      and same(*(np.concatenate([c.ravel() for c in side])
+                                 for side in cells)))
+            else:
+                ok = same(ref[col].to_numpy(), out[col].to_numpy())
+            check(ok, f"{tag}.{col}: not bit-identical")
+        return
+    check(ref.field_names == out.field_names and len(ref) == len(out),
+          f"{tag}: fields {out.field_names} x {len(out)} != {ref.field_names} x {len(ref)}")
+    for f in ref.field_names:
+        check(same(ref[f], out[f]), f"{tag}.{f}: not bit-identical")
+
+
+BATCH_PHASE_KEYS = ("fusion.wave_chain.compute_many", "fusion.batched.prep_run",
+                    "fusion.batched.upload", "fusion.batched.device_program",
+                    "fusion.batched.fetch", "fusion.batched.finalize",
+                    "fusion.wave_chain.compute", "fusion.single.load", "fusion.single.upload",
+                    "fusion.single.device_program", "fusion.single.fetch",
+                    "fusion.single.finalize", "context.save_cache",
+                    "context.release_device_columns")
+
+
+def timed_turns(ctx, order, call) -> dict:
+    """``call(i, kind)`` for each kind ("B" batched or "P" per-run) of
+    ``order`` on ``ctx``, each timed on the host clock up to a device
+    synchronize, then flush_saves() timed apart; per kind the walls, the
+    profiler phases (s), the flush times, the memory allocated after each
+    call and the peak above its start. Returns {kind: {...}}."""
+    out = {k: {"walls": [], "phases": [], "flushes": [], "peaks": []} for k in set(order)}
+    held = []
+    for i, kind in enumerate(order):
+        ctx.profiler.reset()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        call(i, kind)
+        torch.cuda.synchronize()
+        rec = out[kind]
+        rec["walls"].append(time.perf_counter() - t0)
+        rec["peaks"].append(torch.cuda.max_memory_allocated() - before)
+        rec["phases"].append({k: v["total_s"] for k, v in ctx.profiler.stats().items()})
+        t0 = time.perf_counter()
+        ctx.flush_saves()
+        rec["flushes"].append(time.perf_counter() - t0)
+        held.append(torch.cuda.memory_allocated())
+    check(max(held) - min(held) <= 16 << 20,
+          f"memory allocated after each call {held} B is not flat")
+    out["held"] = held
+    return out
+
+
+def turns_line(rec, n_wf: int) -> str:
+    """Median wall (and waveforms/s), the walls, the median phases in ms,
+    the median flush and the largest peak of one kind's calls."""
+    idx = list(range(len(rec["walls"])))
+    med = statistics.median(rec["walls"][i] for i in idx)
+    phases = {k.split(".", 1)[1]: round(statistics.median(
+        rec["phases"][i].get(k, 0.0) for i in idx) * 1e3, 1)
+        for k in BATCH_PHASE_KEYS if any(k in rec["phases"][i] for i in idx)}
+    return (f"median of {len(idx)} {med * 1e3:.1f} ms = {n_wf / med:.0f} waveforms/s (calls "
+            f"{[round(rec['walls'][i] * 1e3, 1) for i in idx]} ms); phases ms {phases}; "
+            f"flush_saves median {statistics.median(rec['flushes'][i] for i in idx) * 1e3:.1f} "
+            f"ms; peak above the call's start {max(rec['peaks']) / 1e9:.3f} GB")
+
+
+def batched_injected_phase(dev, smi: str, kernels: dict, plugins) -> dict:
+    """Slice 10's main path on injected waves: slice 2's Context (the five
+    cone plugins, config 7) and request over N_BATCH_RUNS runs of
+    N_EVENTS x 256 of bench.py's waves, each run its own batch, through
+    ``get_data_batched``. The
+    first call launches K2, K3 and K4 exactly once and runs
+    ``fusion.wave_chain.compute_many``; every run's tables equal per-run
+    ``get_data`` on a second card Context bit for bit. Then the batched
+    call against the same 16 runs through per-run ``get_data``, in turns
+    (cold batched and per-run, then P B B P P B), fresh run ids every call,
+    with the memory allocated after each call (flat) and each call's peak;
+    one warm batched call under torch.profiler; and two runs of
+    N_BATCH_CPU through get_data_batched on the card against the port's CPU
+    Context. Returns the first call's launch counts."""
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
+
+    request = ["s1_s2", "hit_threshold"]
+    bases = [make_batch(N_EVENTS, WAVE_LEN, seed=600 + i) for i in range(N_BATCH_RUNS)]
+    n_wf = N_BATCH_RUNS * N_EVENTS
+
+    def inject(ctx, call: int) -> list:
+        """Fresh run ids; every call holds the same 16 batches (rotated
+        over the ids), so every call does the same work."""
+        rids = [f"c{call}r{i}" for i in range(N_BATCH_RUNS)]
+        for i, rid in enumerate(rids):
+            waves = bases[(i + call) % N_BATCH_RUNS]
+            ctx.inject_data(rid, "st_waveforms", st_waveforms_from_waves(waves))
+        return rids
+
+    def forget(ctx, rids) -> None:  # keep the host memory of earlier calls bounded
+        for key in [k for k in ctx._results if k[0] in rids]:
+            del ctx._results[key]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = make_route_context(Context, plugins, f"{tmp}/batched", "cuda")
+        ref = make_route_context(Context, plugins, f"{tmp}/per_run", "cuda")
+        rids = inject(ctx, 0)
+        inject(ref, 0)
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = ctx.get_data_batched(rids, request)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        want = {k: int(k in ("peaks_scan", "hits_scan", "width_scan")) for k in kernels}
+        check(launches == want, f"batched injected: launches {launches}, expected {want}")
+        check(ctx.profiler.stats()["fusion.wave_chain.compute_many"]["count"] == 1,
+              "batched injected: compute_many did not run once")
+        on_card = [key for key, t in ctx._results.items() if hasattr(t, "columns") and any(
+            isinstance(v, torch.Tensor) and v.is_cuda for v in t.columns.values())]
+        check(not on_card, f"batched injected: cached tables with columns on the card {on_card}")
+        t0 = time.perf_counter()
+        for rid in rids:
+            ref.get_data(rid, request)
+        torch.cuda.synchronize()
+        cold_per_run = time.perf_counter() - t0
+        sizes = {m: 0 for m in MEMBERS}
+        for rid in rids:
+            for m in MEMBERS:
+                table = ctx.get_data(rid, m)
+                check_identical(ref.get_data(rid, m), table, f"batched {rid}.{m}")
+                sizes[m] += len(table)
+            for m in request:
+                check_identical(ref.get_data(rid, m), got[rid][m], f"batched result {rid}.{m}")
+        ctx.flush_saves()
+        ref.flush_saves()
+        forget(ctx, rids)
+        forget(ref, rids)
+        del got, ref
+        print(f"main path 10 batched: get_data_batched({N_BATCH_RUNS} runs x {N_EVENTS}x"
+              f"{WAVE_LEN} = {n_wf} waveforms, {request}) launches {launches} (one program); "
+              f"tables {sizes} in all; every run's tables = per-run get_data on a second card "
+              f"Context bit for bit; cold {cold:.3f} s (the {N_BATCH_RUNS} per-run calls "
+              f"cold {cold_per_run:.3f} s)", flush=True)
+
+        order = ("P", "B", "B", "P", "P", "B")
+        seen = []
+
+        def call(i, kind):
+            rids = inject(ctx, i + 1)
+            if kind == "B":
+                ctx.get_data_batched(rids, request)
+            else:
+                for rid in rids:
+                    ctx.get_data(rid, request)
+            seen.append(rids)
+
+        rec = timed_turns(ctx, order, call)
+        for rids in seen:
+            forget(ctx, rids)
+        print(f"route batched {N_BATCH_RUNS}x{N_EVENTS}x{WAVE_LEN} ({smi}), in turns "
+              f"{''.join(order)}: batched get_data_batched {turns_line(rec['B'], n_wf)}; "
+              f"per-run get_data x{N_BATCH_RUNS} {turns_line(rec['P'], n_wf)}; memory "
+              f"allocated after each call {rec['held']} B", flush=True)
+        rids = inject(ctx, len(order) + 1)
+        profile_call(ctx, lambda: ctx.get_data_batched(rids, request),
+                     f"batched {N_BATCH_RUNS}x{N_EVENTS}x{WAVE_LEN}", smi)
+        forget(ctx, rids)
+        del ctx
+
+        # two runs through the batched program on the card and on the CPU
+        small = {f"s{i}": st_waveforms_from_waves(make_batch(N_BATCH_CPU, WAVE_LEN, seed=650 + i))
+                 for i in range(2)}
+        out = {}
+        for device in ("cuda", "cpu"):
+            c = make_route_context(Context, plugins, f"{tmp}/small_{device}", device)
+            for rid, st in small.items():
+                c.inject_data(rid, "st_waveforms", st)
+            c.get_data_batched(list(small), request)
+            out[device] = {(rid, m): c.get_data(rid, m) for rid in small for m in MEMBERS}
+            c.flush_saves()
+        err, where = max(compare_tables(out["cpu"][k], out["cuda"][k], f"{k[0]}.{k[1]}")
+                         for k in out["cpu"])
+        print(f"main path 10 batched at 2x{N_BATCH_CPU}x{WAVE_LEN}: every member table = the "
+              f"CPU Context's batched tables (max |f32 diff| {err:.3g}, {where})", flush=True)
+    return launches
+
+
+def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> dict:
+    """Slice 10 on the ingest route: N_BATCH_FILE_RUNS fresh run names
+    linked to the ingest phase's VX2730 files (``source``, N_INGEST
+    waveforms each) through ``get_data_batched(runs, INGEST_REQUEST)`` on
+    the default profile. The first call runs compute_many once: K3 once
+    for the group, K2 once a run (``hit`` reads the SG-filtered waves, a
+    standalone member as in the per-run route), nothing else; every table
+    of the request equals per-run ``get_data`` on a second Context bit for
+    bit. Then per-run and batched again, in turns (P B B P); then
+    ``BatchProcessor(ctx, executor_type="device", on_error="raise")``
+    computes df_events on fresh names through compute_many, and the thread
+    executor with 2 workers counts every K2 launch of s1_s2 on two runs at
+    once and gives the same df_events. Returns the first call's launch
+    counts."""
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.data.batch_processor import BatchProcessor
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+
+    n_wf = N_BATCH_FILE_RUNS * N_INGEST
+
+    def names(tag: str, k: int = N_BATCH_FILE_RUNS) -> list:
+        return [link_run(daq, source, f"bf_{tag}_{i}") for i in range(k)]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/batched", dev.type)
+        ref = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/per_run", dev.type)
+        rids = names("c0")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        got = ctx.get_data_batched(rids, INGEST_REQUEST)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in kernels.items()}
+        want = {k: {"hits_scan": 1, "peaks_scan": N_BATCH_FILE_RUNS}.get(k, 0) for k in kernels}
+        check(launches == want, f"batched files: launches {launches}, expected {want}")
+        check(ctx.profiler.stats()["fusion.wave_chain.compute_many"]["count"] == 1,
+              "batched files: compute_many did not run once")
+        t0 = time.perf_counter()
+        for rid in rids:
+            ref.get_data(rid, INGEST_REQUEST)
+        torch.cuda.synchronize()
+        cold_per_run = time.perf_counter() - t0
+        for rid in rids:
+            for name in INGEST_COMPARED:
+                check_identical(ref.get_data(rid, name), ctx.get_data(rid, name),
+                                f"batched files {rid}.{name}")
+            for name in INGEST_REQUEST:
+                check_identical(ref.get_data(rid, name), got[rid][name],
+                                f"batched files result {rid}.{name}")
+        ctx.flush_saves()
+        ref.flush_saves()
+        del got, ref
+        print(f"main path 10 batched files: get_data_batched({N_BATCH_FILE_RUNS} runs x "
+              f"{N_INGEST}x{WAVE_LEN} from VX2730 files, {INGEST_REQUEST}) launches {launches}; "
+              f"every table of {list(INGEST_COMPARED)} = per-run get_data on a second card "
+              f"Context bit for bit; cold {cold:.3f} s (the per-run calls cold "
+              f"{cold_per_run:.3f} s)", flush=True)
+
+        order = ("P", "B", "B", "P")
+
+        def call(i, kind):
+            rids = names(f"t{i}")
+            if kind == "B":
+                ctx.get_data_batched(rids, INGEST_REQUEST)
+            else:
+                for rid in rids:
+                    ctx.get_data(rid, INGEST_REQUEST)
+
+        rec = timed_turns(ctx, order, call)
+        print(f"route batched files {N_BATCH_FILE_RUNS}x{N_INGEST}x{WAVE_LEN} ({smi}), in turns "
+              f"{''.join(order)} after the cold pair: batched {turns_line(rec['B'], n_wf)}; "
+              f"per-run x{N_BATCH_FILE_RUNS} {turns_line(rec['P'], n_wf)}; memory allocated "
+              f"after each call {rec['held']} B", flush=True)
+
+        rids = names("bp")
+        ctx.profiler.reset()
+        t0 = time.perf_counter()
+        res = BatchProcessor(ctx, executor_type="device", on_error="raise").process_runs(
+            rids, "df_events")
+        t_device = time.perf_counter() - t0
+        check(sorted(res.succeeded) == sorted(rids) and not res.failed,
+              f"BatchProcessor device executor: {res.summary()}")
+        check(ctx.profiler.stats().get("fusion.wave_chain.compute_many", {}).get("count") == 1,
+              "BatchProcessor device executor: compute_many did not run once")
+        # the thread executor: each worker a clone of ctx. s1_s2 launches K2
+        # once a run (the standalone hit), from two threads at once; then
+        # df_events of the same runs
+        thread_rids = names("th", 2)
+        bp_t = BatchProcessor(ctx, executor_type="thread", max_workers=2, on_error="raise")
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        bp_t.process_runs(thread_rids, "s1_s2")
+        torch.cuda.synchronize()
+        t_thread = time.perf_counter() - t0
+        got_t = {name: fn.launches for name, fn in kernels.items()}
+        want_t = {k: {"peaks_scan": 2}.get(k, 0) for k in kernels}
+        check(got_t == want_t, f"thread executor: launches {got_t}, expected {want_t} "
+              f"(a lost count?)")
+        res_t = bp_t.process_runs(thread_rids, "df_events")
+        for rid in thread_rids:  # the same files: the same table
+            check_identical(res.get(rids[0]).data, res_t.get(rid).data,
+                            f"thread executor {rid}.df_events")
+        ctx.flush_saves()
+        print(f"main path 10 BatchProcessor on the files: executor_type='device' "
+              f"(on_error='raise') df_events of {N_BATCH_FILE_RUNS} fresh runs through "
+              f"compute_many in {t_device:.3f} s; executor_type='thread' with 2 workers: s1_s2 "
+              f"of 2 runs in {t_thread:.3f} s, launches {got_t} (none lost), then their "
+              f"df_events = the device executor's bit for bit "
+              f"({len(res_t.get(thread_rids[0]).data)} rows)", flush=True)
+    return launches
+
+
+def batched_kernel_cases(dev, make_batch, csc, wsc, find_peaks_batch,
+                         threshold_hits_batch) -> dict:
+    """K2, K3 and K4 on a batched group's matrix, each against its plain
+    version on the same card tensors: BATCH_RUNS of bench.py's waves built
+    by the batched dispatch's own ``_batch_waves`` (narrower rows padded
+    with zeros, zero-length padding rows up to a multiple of BATCH_BUCKET),
+    the signal and inputs as the hit / hit_threshold stages form them from
+    the group's columns (padding: sign 1, baseline 0, threshold 0); K2 and
+    K3 at K = 8, 16 and 32, K4 on K2's K = 32 slots. The padding rows must
+    hold no peak and no run. Returns {kernel: [(case line, max |f32
+    diff|)]}."""
+    from waveformanalysis_tpu_torch.context.fusion import WaveChainFusion
+
+    total = sum(n for n, _ in BATCH_RUNS)
+    padded = -(-total // BATCH_BUCKET) * BATCH_BUCKET
+    L = max(length for _, length in BATCH_RUNS)
+    preps = [{"waves": make_batch(n, length, seed=40 + i), "n": n}
+             for i, (n, length) in enumerate(BATCH_RUNS)]
+    waves = WaveChainFusion._batch_waves(preps, L, padded, dev)
+    lengths = np.zeros(padded, np.int32)
+    lengths[:total] = np.repeat([length for _, length in BATCH_RUNS],
+                                [n for n, _ in BATCH_RUNS])
+    vl = torch.from_numpy(lengths).to(dev)
+    bl = torch.zeros(padded, device=dev)
+    bl[:total] = 1000.0
+    thr = torch.zeros(padded, device=dev)
+    thr[:total] = 10.0
+    sig = waves.float() - bl[:, None]
+    check(waves.dtype == torch.int16 and tuple(waves.shape) == (padded, L)
+          and not bool(waves[total:].any()), "batched matrix: padding rows not zero")
+    shape = f"{padded}x{L} ({'+'.join(f'{n}x{length}' for n, length in BATCH_RUNS)}, " \
+            f"{padded - total} zero-length rows)"
+    peak_fields = ("peak_value", "prominence", "left_ips", "right_ips", "widths",
+                   "left_bases", "right_bases")
+    hit_fields = ("position", "height", "integral", "seg_start", "seg_end",
+                  "run_start", "run_end")
+    out_cases = {"peaks_scan": [], "hits_scan": [], "width_scan": []}
+    pos32 = None
+    for K in (8, 16, 32):
+        kw = dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=K)
+        before = csc.find_peaks_scan.launches
+        out = csc.find_peaks_scan(sig, valid_length=vl, **kw)
+        torch.cuda.synchronize()
+        check(csc.find_peaks_scan.launches == before + 1, f"peaks batched K={K}: not launched")
+        ref = find_peaks_batch(sig, valid_length=vl, **kw)
+        err = compare(ref, out, f"peaks batched K={K}", ref["valid"].cpu().numpy(), peak_fields)
+        check(not bool(out["n_candidates"][total:].any()) and not bool(out["valid"][total:].any()),
+              f"peaks batched K={K}: a padding row holds a peak")
+        out_cases["peaks_scan"].append(
+            (f"K={K} on {shape} ({err:.3g}; {int(ref['valid'].sum())} peaks, "
+             f"{int((ref['n_candidates'] > K).sum())} events overflow)", err))
+        if K == 32:
+            pos32 = out["position"]
+        kw = dict(max_hits=K, left_extension=2, right_extension=2)
+        before = csc.threshold_hits_scan.launches
+        out = csc.threshold_hits_scan(sig, thr, vl, **kw)
+        torch.cuda.synchronize()
+        check(csc.threshold_hits_scan.launches == before + 1, f"hits batched K={K}: not launched")
+        ref = threshold_hits_batch(sig, thr, vl, **kw)
+        err = compare(ref, out, f"hits batched K={K}", ref["valid"].cpu().numpy(), hit_fields)
+        check(not bool(out["n_runs"][total:].any()) and not bool(out["valid"][total:].any()),
+              f"hits batched K={K}: a padding row holds a run")
+        out_cases["hits_scan"].append(
+            (f"K={K} on {shape} ({err:.3g}; {int(ref['valid'].sum())} runs, "
+             f"{int((ref['n_runs'] > K).sum())} events overflow)", err))
+    before = wsc.width_crossings_scan.launches
+    out = wsc.width_crossings_scan(waves, bl, pos32, 0.1, 0.9, 0.9, 0.1, True)
+    torch.cuda.synchronize()
+    check(wsc.width_crossings_scan.launches == before + 1, "width batched: not launched")
+    ref = wsc.width_crossings_plain(waves, bl, pos32, 0.1, 0.9, 0.9, 0.1, True)
+    err = compare(ref, out, "width batched")
+    out_cases["width_scan"].append(
+        (f"K2's K=32 slots on {shape} int16 ({err:.3g}; {int((pos32 >= 0).sum())} "
+         f"occupied slots)", err))
+    return out_cases
 
 
 def main() -> None:
@@ -1323,6 +1757,8 @@ def main() -> None:
                  if "chain_tile_kernel" in p["function"]}
     check(tile_regs == {ctc.TILE_REGISTERS}, f"chain_tile_kernel uses {tile_regs} registers a "
           f"thread; ops/chain_tile_cuda.py::TILE_REGISTERS says {ctc.TILE_REGISTERS}")
+
+    stamp("phase 2 (build)")
 
     # ---- phase 3: each kernel against its plain version on the card -------
     n, L = N_EVENTS, WAVE_LEN
@@ -1538,6 +1974,11 @@ def main() -> None:
                                     f"({err:.3g}; {int((pos >= 0).sum())} occupied slots)")
     print(f"parity width_scan: {len(width_cases)} cases = width_crossings_plain (max |f32 diff| "
           f"in brackets): {'; '.join(parity['width_scan'])}", flush=True)
+    for name, cases in batched_kernel_cases(dev, make_batch, csc, wsc, find_peaks_batch,
+                                            threshold_hits_batch).items():
+        max_err[name] = max([max_err[name]] + [err for _, err in cases])
+        print(f"parity {name} batched group: {'; '.join(tag for tag, _ in cases)}",
+              flush=True)
     del slots, sig_rag, sig_der, sig_edge, slots_of, s250, w250, s_long, wl, dense_sig
     del ragged250_np
 
@@ -1602,6 +2043,8 @@ def main() -> None:
               f"(largest relative difference {rel:.3g})", flush=True)
     del two, fused, out, short
 
+    stamp("phase 3 (parity)")
+
     # ---- phase 4: main path of slice 1 (make_chain_scan) ------------------
     # each main path runs with every kernel's count set to 0 just before it
     kernels = {"chain_scan": csc.chain_scan_cuda, "chain_tile": ctc.chain_tile_cuda,
@@ -1639,6 +2082,8 @@ def main() -> None:
           f"{list(fused_chain_demo.AGREE_KEYS)}; accuracy "
           f"{ {k: v['accuracy'] for k, v in demo['results'].items()} }", flush=True)
     del out, demo
+
+    stamp("phases 4 and 4c")
 
     # ---- phase 5: main path of slice 2 (the Context route) ----------------
     route_kernels = ("peaks_scan", "hits_scan", "width_scan")
@@ -1686,6 +2131,8 @@ def main() -> None:
         check(got == REF_ROUTE_8192, f"route at {N_ROUTE_REF} events: {got}, "
               f"JAX reference {REF_ROUTE_8192}")
         print(f"main path 2 at {N_ROUTE_REF}x{L}: {got} (= JAX reference)", flush=True)
+
+    stamp("phase 5")
 
     # ---- phase 5b: main paths of slice 3 (routes A and B) ------------------
     for route in ("A", "B"):
@@ -1767,19 +2214,34 @@ def main() -> None:
                   flush=True)
             del ctx
 
+    stamp("phase 5b")
+
+    # ---- phase 5j: slice 10, the batched multi-run path on injected waves -
+    batched_launches = batched_injected_phase(dev, smi, kernels, route_plugins)
+    torch.cuda.empty_cache()
+
+    stamp("phase 5j (batched, injected)")
+
     # ---- phases 5c-5e: slice 8, the path from DAQ files -----------------
     # ---- phases 5f-5i: slice 9, records ingest on the same files ----------
+    # ---- phase 5k: slice 10, the batched multi-run path on the files ------
     with tempfile.TemporaryDirectory() as files:
         daq = f"{files}/DAQ"
         ingest_launches, written = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU, daq)
         records_launches = records_phase(dev, smi, kernels, daq, written, N_INGEST,
                                          N_INGEST_CPU)
         del written
+        stamp("phases 5c and 5f-5g (ingest, records)")
+        batched_file_launches = batched_files_phase(dev, smi, kernels, daq, "ingest3")
+        stamp("phase 5k (batched, files)")
     v1725_phase(dev, smi, kernels, N_V1725)
     primitives_phase(dev, smi, N_PRIMITIVES)
+    stamp("phases 5h-5i (V1725, primitives)")
     examples_phase()
     grouping_phase(dev, smi, N_GROUPING)
     tutorial_phase()
+
+    stamp("examples, grouping, tutorial")
 
     # ---- phase 6: kernel times ---------------------------------------------
     # kernels alone on cold inputs (several copies in turn, more bytes than
@@ -2056,6 +2518,8 @@ def main() -> None:
         del w_e, x_e
         torch.cuda.empty_cache()
 
+    stamp("phase 6 (kernel times)")
+
     # ---- phase 7: the Context route's warm per-run wall time --------------
     # a fresh run id and fresh waves per run (results are cached per run);
     # 1 cold run, then the median of 3; flush_saves() after each run
@@ -2176,6 +2640,8 @@ def main() -> None:
     print(proc.stdout.strip(), flush=True)
     check(proc.returncode == 0, f"route B trace failed: {proc.stderr.strip()[-3000:]}")
 
+    stamp("phase 7 (route walls)")
+
     # ---- phase 8: guard and records ----------------------------------------
     leaked = sorted(m for m in sys.modules if m.split(".")[0] == "waveformanalysis_tpu")
     check(not leaked, f"the JAX package was imported: {leaked}")
@@ -2210,6 +2676,10 @@ def main() -> None:
             "ingest_launches": ingest_launches[name],  # slice 8's route from files
             # slice 9's records routes A and B from the same files
             "records_launches": {r: records_launches[r][name] for r in ("A", "B")},
+            # slice 10's batched path: 16 injected runs in one group, and 4
+            # runs from the files (K2 there is the standalone hit, one a run)
+            "batched_launches": {"injected": batched_launches[name],
+                                 "files": batched_file_launches[name]},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -243,15 +243,12 @@ def test_fused_chain_demo_on_cpu():
 
 
 # JAX facade names whose modules the port does not have yet (ROADMAP
-# Queue 1: batching, streaming, multi-device, surface)
+# Queue 1: streaming, multi-device, surface)
 NOT_YET_PORTED = (
     "Chunk", "StreamingPlugin", "StreamingContext", "get_streaming_context",
-    "parallel_map", "parallel_apply", "ExecutorManager", "CancellationToken",
     "DataExporter", "DependencyAnalyzer",
     "wrap_strax_plugin", "StraxContextAdapter", "PluginLoader", "enable_hot_reload",
-    "PluginHotReloader", "CacheManager", "EXECUTOR_CONFIGS", "get_executor",
-    "get_executor_manager", "get_config", "register_config", "get_timeout_manager",
-    "BatchProcessor", "PipelineServer", "make_sharded_chain",
+    "PluginHotReloader", "CacheManager", "PipelineServer", "make_sharded_chain",
     "make_sharded_chain_pallas", "make_sharded_chain_scan", "DAQRun", "DAQAnalyzer",
     "parse_and_stack_files", "WaveformPreviewer", "preview_waveforms",
     "plot_records_waveforms", "plot_lineage_labview", "plot_lineage_plotly",

@@ -52,6 +52,12 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.ops.v1725_device",
     "waveformanalysis_tpu_torch.examples.records_pipeline_example",
     "waveformanalysis_tpu_torch.examples.records_view_example",
+    "waveformanalysis_tpu_torch.execution.manager",
+    "waveformanalysis_tpu_torch.execution.cancellation",
+    "waveformanalysis_tpu_torch.execution.timeout",
+    "waveformanalysis_tpu_torch.execution.load_balancer",
+    "waveformanalysis_tpu_torch.data.batch_processor",
+    "waveformanalysis_tpu_torch.examples.batched_multirun_demo",
 )
 
 
@@ -77,7 +83,8 @@ def test_port_imports_without_jax():
     assert set(KEY_MODULES) <= set(result["modules"])
     assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context", "get_profile",
             "cuda_default", "get_adapter", "group_multi_channel_hits", "RecordsView",
-            "TimeRangeQueryEngine"} <= set(result["names"])
+            "TimeRangeQueryEngine", "BatchProcessor", "ExecutorManager",
+            "parallel_map"} <= set(result["names"])
     assert result["leaked"] == []
 
 

@@ -23,9 +23,9 @@ JAX package                     port
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
-Names whose modules are not ported yet (streaming, the sharded chains, the
-execution manager, DAQ and plotting utilities, ...) are absent: asking for
-one raises ``AttributeError``.
+Names whose modules are not ported yet (streaming, the sharded chains, DAQ
+and plotting utilities, ...) are absent: asking for one raises
+``AttributeError``.
 
 Ported so far:
 
@@ -48,7 +48,15 @@ Ported so far:
 - slice 9, records ingest: the records set (``records``, ``wave_pool``,
   ``wave_pool_filtered``) in the default profile, ``wave_source="records"``
   on the feature plugins, ``RecordsView`` and ``TimeRangeQueryEngine``,
-  and the V1725 device unpack (``st_waveforms.device_unpack=True``).
+  and the V1725 device unpack (``st_waveforms.device_unpack=True``);
+- slice 10, multi-run batching: ``Context.get_data_batched(runs, names)``
+  runs every run's fused bundle as one concatenated device program per
+  device configuration (K2-K4 launch once per group, not once per run),
+  with ``BatchProcessor`` (thread, process and ``device`` executors) and
+  the host execution helpers (``ExecutorManager``, ``parallel_map``, ...;
+  process pools ``spawn`` their workers), and the sticky slot-capacity
+  hints of the single-run program; the demo
+  ``python -m waveformanalysis_tpu_torch.examples.batched_multirun_demo``.
 """
 
 from __future__ import annotations
@@ -107,6 +115,18 @@ _LAZY_API = {
     # records
     "RecordsView": (_P + "data.records_view", "RecordsView"),
     "TimeRangeQueryEngine": (_P + "data.query", "TimeRangeQueryEngine"),
+    # multi-run batching and host execution
+    "BatchProcessor": (_P + "data.batch_processor", "BatchProcessor"),
+    "CancellationToken": (_P + "execution.cancellation", "CancellationToken"),
+    "ExecutorManager": (_P + "execution.manager", "ExecutorManager"),
+    "EXECUTOR_CONFIGS": (_P + "execution.manager", "EXECUTOR_CONFIGS"),
+    "get_executor": (_P + "execution.manager", "get_executor"),
+    "get_executor_manager": (_P + "execution.manager", "get_executor_manager"),
+    "get_config": (_P + "execution.manager", "get_config"),
+    "register_config": (_P + "execution.manager", "register_config"),
+    "parallel_map": (_P + "execution.manager", "parallel_map"),
+    "parallel_apply": (_P + "execution.manager", "parallel_apply"),
+    "get_timeout_manager": (_P + "execution.timeout", "get_timeout_manager"),
     # foundation
     "Profiler": (_P + "foundation.profiler", "Profiler"),
     "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),

@@ -20,8 +20,8 @@ round-trips them through the packed per-field layout, and a plugin's
 ``kernel_version`` is folded into lineage so kernel revisions invalidate
 caches like plugin version bumps do.
 
-Not ported yet (ROADMAP.md): ``get_data_batched``, ``attach_mesh`` (raises),
-and the introspection helpers whose modules are not in the port
+Not ported yet (ROADMAP.md): ``attach_mesh`` (raises; with it the sharded
+path of ``get_data_batched``), and the introspection helpers whose modules are not in the port
 (``analyze_dependencies``, ``analyze_cache``, ``diagnose_cache``,
 ``plot_lineage``).
 """
@@ -439,10 +439,49 @@ class Context:
         the call, and afterwards the cache keeps host arrays, as the JAX
         package's plugins return them.
         """
+        out, moved = self._in_request(self._get_data, run_id, data_name, **kwargs)
+        if isinstance(out, dict):
+            return {k: moved.get(id(v), v) for k, v in out.items()}
+        return moved.get(id(out), out)
+
+    def get_data_batched(
+        self, run_ids: Any, data_name: Any, **kwargs: Any
+    ) -> Dict[str, Any]:
+        """Multi-RUN read: fused bundles batch across runs on the event axis.
+
+        The reference's multi-run story is host process fan-out
+        (reference: waveform_analysis/core/data/batch_processor.py:197);
+        here runs still to compute are planned individually, but their
+        fused wave-chain bundles are concatenated and run as ONE device
+        program per matching device configuration, amortizing upload,
+        launches and the copy back over the whole batch
+        (context/fusion.py compute_many). Cached runs load as usual;
+        outputs, lineage keys, and saves are identical to per-run
+        ``get_data``, and like an outermost ``get_data`` the call moves the
+        device columns of every table it cached, for any of its runs, to
+        the host before it returns.
+
+        Returns ``{run_id: result}`` for a single name, or
+        ``{run_id: {name: result}}`` for a list of names.
+        """
+        multi = isinstance(data_name, (list, tuple))
+        out, moved = self._in_request(
+            self._get_data_batched, list(run_ids), data_name, **kwargs
+        )
+        if multi:
+            return {rid: {k: moved.get(id(v), v) for k, v in res.items()}
+                    for rid, res in out.items()}
+        return {rid: moved.get(id(v), v) for rid, v in out.items()}
+
+    def _in_request(self, fn, *args: Any, **kwargs: Any) -> Tuple[Any, Dict[int, Any]]:
+        """``fn(*args, **kwargs)`` as one request: nested calls count their
+        depth, and when the outermost returns, the device columns of the
+        tables the request cached move to the host. Returns (result,
+        {id(old table): host table})."""
         with self._request_lock:
             self._request_depth += 1
         try:
-            out = self._get_data(run_id, data_name, **kwargs)
+            out = fn(*args, **kwargs)
         finally:
             with self._request_lock:
                 self._request_depth -= 1
@@ -450,9 +489,7 @@ class Context:
                 if outermost:
                     self._request_stored = []
             moved = self._release_device_columns(stored) if outermost else {}
-        if isinstance(out, dict):
-            return {k: moved.get(id(v), v) for k, v in out.items()}
-        return moved.get(id(out), out)
+        return out, moved
 
     def _release_device_columns(self, keys: List[Tuple[str, str]]) -> Dict[int, Any]:
         """Move the device columns of the memory-cached tables under
@@ -522,6 +559,44 @@ class Context:
                 self.execution_domain.run_plugins(run_id, pending, **kwargs)
             )
         return {name: out[name] for name in names}
+
+    def _get_data_batched(
+        self, run_ids: List[str], data_name: Any, **kwargs: Any
+    ) -> Dict[str, Any]:
+        multi = isinstance(data_name, (list, tuple))
+        names = list(data_name) if multi else [data_name]
+        out: Dict[str, Dict[str, Any]] = {}
+        pending_runs: Dict[str, List[str]] = {}
+        for rid in run_ids:
+            self.config_domain.prepare_request(rid)
+            found: Dict[str, Any] = {}
+            pending: List[str] = []
+            for name in names:
+                data = self._get_data_from_memory(rid, name)
+                if data is None and name in self._plugins:
+                    key = self.key_for(rid, name)
+                    data = self.cache_domain.load_from_disk_with_check(
+                        rid, name, key
+                    )
+                if data is not None:
+                    found[name] = data
+                elif name not in self._plugins:
+                    raise self._unknown_name_error(name)
+                else:
+                    pending.append(name)
+            out[rid] = found
+            if pending:
+                pending_runs[rid] = pending
+        if pending_runs:
+            computed = self.execution_domain.run_plugins_batched(
+                list(pending_runs), pending_runs, **kwargs
+            )
+            for rid, pend in pending_runs.items():
+                for name in pend:
+                    out[rid][name] = computed[rid][name]
+        if multi:
+            return {rid: {n: out[rid][n] for n in names} for rid in run_ids}
+        return {rid: out[rid][names[0]] for rid in run_ids}
 
     def _unknown_name_error(self, name: str) -> KeyError:
         """Unknown data name -> KeyError; removed legacy names get a

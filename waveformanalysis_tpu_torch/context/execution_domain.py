@@ -179,10 +179,98 @@ class ExecutionDomain:
                 results[target] = self.ctx._load_for_user(run_id, target)
         return results
 
+    def run_plugins_batched(
+        self, run_ids: List[str], targets: Any, **kwargs: Any
+    ) -> Dict[str, Dict[str, Any]]:
+        """Execute ``targets`` for several runs, batching fused bundles
+        ACROSS runs.
+
+        ``targets`` is either one name list applied to every run, or a
+        ``{run_id: [names]}`` mapping — per-run lists avoid computing (and
+        caching) names a given run never asked for.
+
+        Planning happens per run (caches and run_config differ), then every
+        run's fused-bundle members are handed to the fusion rule's
+        ``compute_many`` in one call — runs with matching device config are
+        concatenated on the event axis and dispatched as one device program
+        (see WaveChainFusion.compute_many). The per-run plan walk then
+        consumes those results exactly like single-run fused execution, so
+        save/lineage/stats semantics are unchanged.
+        """
+        ctx = self.ctx
+        per_run_targets = (
+            {rid: list(targets[rid]) for rid in run_ids}
+            if isinstance(targets, dict)
+            else {rid: list(targets) for rid in run_ids}
+        )
+        run_info = []
+        for rid in run_ids:
+            ctx.config_domain.prepare_request(rid)
+            seen: Set[str] = set()
+            plan: List[str] = []
+            needed: Set[str] = set()
+            for target in per_run_targets[rid]:
+                for name in self.resolve_execution_plan(target, rid):
+                    if name not in seen:
+                        seen.add(name)
+                        plan.append(name)
+                needed |= self.compute_needed_set(plan, target, rid)
+            bundles = self._plan_fusion(rid, needed, kwargs, batched=True)
+            run_info.append((rid, plan, needed, bundles))
+
+        # hand each rule every run's member set in ONE call
+        rule_runs: Dict[int, Any] = {}
+        for rid, _plan, _needed, bundles in run_info:
+            by_rule: Dict[int, Any] = {}
+            for _m, (rule, members) in bundles.items():
+                by_rule[id(rule)] = (rule, members)
+            for rule_id, (rule, members) in by_rule.items():
+                rule_runs.setdefault(rule_id, (rule, []))[1].append(
+                    (rid, members)
+                )
+        precomputed: Dict[str, Dict[str, Any]] = {rid: {} for rid in run_ids}
+        for rule, rms in rule_runs.values():
+            if len(rms) >= 2 and hasattr(rule, "compute_many"):
+                with ctx.profiler.time(f"fusion.{rule.name}.compute_many"):
+                    batched = rule.compute_many(ctx, rms)
+                for rid, results in batched.items():
+                    precomputed[rid].update(results)
+
+        out: Dict[str, Dict[str, Any]] = {}
+        for rid, plan, needed, bundles in run_info:
+            target_set = set(per_run_targets[rid])
+            ctx.config_domain.prepare_request(rid)
+            fused_results = dict(precomputed[rid])
+            results: Dict[str, Any] = {}
+            for name in plan:
+                if name not in needed:
+                    continue
+                bundle = bundles.get(name)
+                if bundle is not None and name not in fused_results:
+                    rule, members = bundle
+                    with ctx.profiler.time(f"fusion.{rule.name}.compute"):
+                        fused_results.update(rule.compute(ctx, rid, members))
+                result = self.execute_single_plugin(
+                    rid, name, is_target=(name in target_set),
+                    precomputed=fused_results, **kwargs
+                )
+                if name in target_set:
+                    results[name] = result
+            for target in per_run_targets[rid]:
+                if target not in results:
+                    results[target] = ctx._load_for_user(rid, target)
+            out[rid] = results
+        return out
+
     def _plan_fusion(
         self, run_id: str, needed: Set[str], kwargs: Dict[str, Any],
+        batched: bool = False,
     ) -> Dict[str, Any]:
-        """Map member data name -> (rule, members) for applicable fusions."""
+        """Map member data name -> (rule, members) for applicable fusions.
+
+        ``batched`` uses the rule's relaxed ``plan_batched`` (single members
+        qualify: cross-run batching amortizes dispatch even for one plugin).
+        """
         if kwargs or not self.ctx.config.get("fused_execution", True):
             return {}
         from waveformanalysis_tpu_torch.context.fusion import get_fusion_rules
@@ -190,8 +278,12 @@ class ExecutionDomain:
         bundles: Dict[str, Any] = {}
         covered: Set[str] = set()
         for rule in get_fusion_rules():
+            planner = (
+                getattr(rule, "plan_batched", rule.plan) if batched
+                else rule.plan
+            )
             try:
-                members = rule.plan(self.ctx, run_id, needed - covered)
+                members = planner(self.ctx, run_id, needed - covered)
             except Exception as exc:  # pragma: no cover - defensive
                 logger.debug("fusion rule %s rejected: %s", rule.name, exc)
                 members = None

@@ -17,8 +17,16 @@ phases are exactly the ones its standalone ``compute`` runs, so outputs are
 bit-identical, lineage/cache keys are untouched, and save_when semantics
 apply per plugin as usual (tests/test_torch_context_route.py asserts it).
 
-Not ported yet (ROADMAP.md): the batched multi-run path, the sticky
-slot-capacity hints (outputs do not depend on them), the sharded path.
+Several runs go through one program too (``compute_many``, behind
+``Context.get_data_batched``): runs whose device configuration matches are
+concatenated on the event axis, padded with zero-length events to a
+multiple of ``config["fused_batch_bucket"]``, and split at the run
+boundaries on the host. A run computed again over the same lineage shrinks
+its slot capacities to the count it had (the sticky slot-capacity hints);
+an overflow of a shrunken capacity re-dispatches at the configured one.
+
+Not ported yet (ROADMAP.md): the sharded path (``attach_mesh`` raises) and
+the JAX package's AOT program cache and packed bucketed fetch.
 """
 
 from __future__ import annotations
@@ -75,6 +83,52 @@ _SLOT_OVERFLOW = {
     "hit": ("n_candidates", "max_peaks"),
     "hit_threshold": ("n_runs", "max_hits"),
 }
+
+# sticky slot-capacity buckets: observed per-event max candidate counts are
+# recorded per (run, member lineage) in cache metadata, so a LATER compute
+# over the same run+lineage runs a right-sized K instead of the static
+# default capacity (a member's device cost grows with K). Capacity knobs are
+# untracked options, so a shrunken K leaves lineage/cache keys untouched;
+# outputs are identical by construction: every hinted stage emits an
+# overflow counter against its shrunken capacity, and any overflow (stale
+# hint -- e.g. data re-injected under the same run id) discards the hint and
+# re-dispatches at the configured capacity. Disable via config
+# ``{"capacity_hints": False}``.
+_CAP_BUCKETS = (8, 16, 32)
+
+# device_stage-relevant config keys per member: runs batch into one program
+# only when these agree (host-only keys like channel_config affect inputs,
+# not the program)
+_DEVICE_CFG_KEYS = {
+    "basic_features": ("height_range", "area_range"),
+    "hit": (
+        "use_derivative", "height", "distance", "prominence", "width",
+        "height_method", "height_window_extension", "max_peaks", "backend",
+    ),
+    "hit_threshold": (
+        "left_extension", "right_extension", "max_hits", "backend",
+    ),
+    "waveform_width_integral": ("q_low", "q_high"),
+    "waveform_width": (
+        "rise_low", "rise_high", "fall_high", "fall_low", "interpolation",
+        "backend",
+    ),
+}
+
+
+def _host_rows(waves: np.ndarray) -> torch.Tensor:
+    """A host wave matrix (possibly a strided view of the st_waveforms
+    records) as a contiguous CPU tensor, for one copy to the device."""
+    return torch.from_numpy(np.ascontiguousarray(waves))
+
+
+def _dtype_name(waves) -> str:
+    """The wave matrix's dtype by name, the same for a host array and a
+    tensor of one dtype (``int16`` for both ``np.int16`` and
+    ``torch.int16``), so batched runs group on it."""
+    if isinstance(waves, torch.Tensor):
+        return str(waves.dtype).replace("torch.", "")
+    return np.dtype(waves.dtype).name
 
 
 class WaveChainFusion:
@@ -228,6 +282,14 @@ class WaveChainFusion:
             return None
         return usable
 
+    def plan_batched(
+        self, ctx: Any, run_id: str, needed: set
+    ) -> Optional[List[str]]:
+        """Batched-dispatch planning: a SINGLE member qualifies -- batching
+        runs on the event axis amortizes upload/dispatch/fetch latency even
+        when only one wave-chain plugin is in the needed set."""
+        return self.plan(ctx, run_id, needed, min_members=1)
+
     # -- execution -----------------------------------------------------------
 
     def compute(self, ctx: Any, run_id: str, members: List[str]) -> Dict[str, Any]:
@@ -283,24 +345,50 @@ class WaveChainFusion:
             meta["baseline"].astype(np.float32),
             thresholds,
         )
+        hinted = self._apply_capacity_hints(
+            ctx, run_id, device_members, cfgs, support_hit_cfg, n
+        )
         with ctx.profiler.time("fusion.single.upload"):
             dev_in = tuple(to_device(x, dev) for x in inputs)
-        with ctx.profiler.time("fusion.single.device_program"):
-            out = self._run_stages(
-                tuple(device_members), cfgs, plugins, support_hit_cfg, *dev_in
-            )
-            compacted, host_out = self._compact(device_members, cfgs, out)
-            if dev.type == "cuda":  # the phase ends when the device is done
-                torch.cuda.synchronize(dev)
-        with ctx.profiler.time("fusion.single.fetch"):
-            slot_out = {}
-            for m, (mat, count, fields, dtypes) in compacted.items():
-                slot_out[m] = decode_slot_matrix(
-                    mat[:count].cpu().numpy(), fields, dtypes
+        while True:
+            with ctx.profiler.time("fusion.single.device_program"):
+                out = self._run_stages(
+                    tuple(device_members), cfgs, plugins, support_hit_cfg,
+                    *dev_in
                 )
-            for m in device_members:
-                if m not in _SLOT_FIELDS:
-                    host_out[m] = {k: v.cpu().numpy() for k, v in out[m].items()}
+                compacted, counters = self._compact(
+                    device_members, cfgs, support_hit_cfg, out
+                )
+                if dev.type == "cuda":  # the phase ends when the device is done
+                    torch.cuda.synchronize(dev)
+            with ctx.profiler.time("fusion.single.fetch"):
+                host_out, slot_out = self._fetch(
+                    device_members, out, compacted, counters
+                )
+            stale = [
+                m for m in hinted
+                if host_out.get(m + "__overflow",
+                                host_out.get("__" + m + "_support__overflow", 0))
+            ]
+            if not stale:
+                break
+            # a hinted capacity overflowed: the recorded hint no longer
+            # matches the run's data (e.g. re-injected under the same run
+            # id). Restore configured capacities and re-dispatch -- outputs
+            # stay identical to the never-hinted program.
+            logger.warning(
+                "stale slot-capacity hint for %s on run %s; "
+                "re-dispatching at configured capacity", stale, run_id,
+            )
+            for m in stale:
+                self._drop_hint(ctx, run_id, m)
+            for m, orig in hinted.items():
+                for cfg in self._capacity_targets(
+                    m, device_members, cfgs, support_hit_cfg
+                ):
+                    cfg[_SLOT_OVERFLOW[m][1]] = orig
+            hinted = {}
+        self._record_capacity_hints(ctx, run_id, host_out, n)
 
         results: Dict[str, Any] = {}
         with ctx.profiler.time("fusion.single.finalize"):
@@ -357,18 +445,30 @@ class WaveChainFusion:
                     peaks_stage = HitFinderPlugin.device_stage(
                         support_hit_cfg, waves_d, lengths_d, sign_d, baselines_d
                     )
+                    # the support stage's candidate counts feed the
+                    # overflow and max-count leaves of the capacity hints
+                    out["__hit_support"] = peaks_stage
                 out[m] = stage(cfgs[m], waves_d, peaks_stage)
         return out
 
     @staticmethod
-    def _compact(device_members: List[str], cfgs: Dict, out: Dict):
-        """Compact each slot member on the device and count its overflow.
+    def _compact(
+        device_members: List[str], cfgs: Dict, support_hit_cfg, out: Dict,
+        per_event_overflow: bool = False,
+    ):
+        """Compact each slot member on the device and count its overflow
+        against its (possibly hinted) capacity.
 
-        Returns ({member: (matrix, count, fields, dtypes)},
-        {member + "__overflow": int}).
+        Returns ({member: (matrix, count, fields, dtypes)}, {name: tensor})
+        with the counters ``m + "__overflow"`` (the number of events over
+        capacity, or with ``per_event_overflow`` the per-event 0/1 vector
+        the batched dispatch splits by run) and, single-run only,
+        ``m + "__max_count"`` (the largest per-event count: the capacity
+        hint); the unemitted support hit stage's as
+        ``"__hit_support__overflow"`` / ``"__hit_support__max_count"``.
         """
         compacted = {}
-        overflow: Dict[str, int] = {}
+        counters: Dict[str, torch.Tensor] = {}
         for m in device_members:
             if m not in _SLOT_FIELDS:
                 continue
@@ -376,48 +476,218 @@ class WaveChainFusion:
             fields = _SLOT_FIELDS[m]
             mat, count = compact_slots(stage, fields)
             compacted[m] = (mat, count, fields, field_dtypes(stage, fields))
-            if m in _SLOT_OVERFLOW:
-                count_key, cap_key = _SLOT_OVERFLOW[m]
-                overflow[m + "__overflow"] = int(
-                    (stage[count_key] > cfgs[m][cap_key]).sum()
-                )
-        return compacted, overflow
+        stages = [(m, m, out[m], cfgs[m]) for m in device_members
+                  if m in _SLOT_OVERFLOW]
+        if "__hit_support" in out and not per_event_overflow:
+            stages.append(("__hit_support", "hit", out["__hit_support"],
+                           support_hit_cfg))
+        for name, m, stage, cfg in stages:
+            count_key, cap_key = _SLOT_OVERFLOW[m]
+            over = (stage[count_key] > cfg[cap_key]).to(torch.int32)
+            if per_event_overflow:
+                counters[name + "__overflow"] = over
+            else:
+                counters[name + "__overflow"] = over.sum()
+                counters[name + "__max_count"] = stage[count_key].max().to(torch.int64)
+        return compacted, counters
+
+    @staticmethod
+    def _fetch(device_members: List[str], out: Dict, compacted: Dict,
+               counters: Dict):
+        """Copy the valid slot rows, the dense leaves and the counters to
+        the host; returns (host_out, {member: (rows, slots)})."""
+        slot_out = {}
+        for m, (mat, count, fields, dtypes) in compacted.items():
+            slot_out[m] = decode_slot_matrix(
+                mat[:count].cpu().numpy(), fields, dtypes
+            )
+        host_out: Dict[str, Any] = {}
+        for m in device_members:
+            if m not in _SLOT_FIELDS:
+                host_out[m] = {k: v.cpu().numpy() for k, v in out[m].items()}
+        scalars = [k for k, v in counters.items() if v.dim() == 0]
+        if scalars:  # one copy for every scalar counter
+            values = torch.stack([counters[k].to(torch.int64) for k in scalars])
+            host_out.update(zip(scalars, values.tolist()))
+        host_out.update({k: v.cpu().numpy() for k, v in counters.items()
+                         if v.dim()})
+        return host_out, slot_out
+
+    # -- sticky slot-capacity hints -------------------------------------------
+
+    @staticmethod
+    def _hint_store(ctx: Any) -> Dict[str, Optional[Tuple[int, int]]]:
+        store = getattr(ctx, "_slot_capacity_hints", None)
+        if store is None:
+            store = {}
+            ctx._slot_capacity_hints = store
+        return store
+
+    @staticmethod
+    def _hint_key(ctx: Any, run_id: str, member: str) -> str:
+        # lineage-hashed like the data caches: a config/version change that
+        # could alter candidate counts changes the key, orphaning the hint
+        return ctx.cache_domain.key_for(run_id, member) + "-caphint"
+
+    def _get_hint(self, ctx: Any, run_id: str, member: str, n: int):
+        """Observed max per-event candidate count, or None. ``n`` guards
+        against re-injected data: a hint recorded over a different event
+        count is ignored."""
+        key = self._hint_key(ctx, run_id, member)
+        store = self._hint_store(ctx)
+        if key not in store:
+            entry = None
+            try:
+                storage = ctx._get_storage_for_data_name(member)
+                meta = storage.get_metadata(key, run_id)
+                if meta and "max_slot_count" in meta:
+                    entry = (int(meta["max_slot_count"]),
+                             int(meta.get("n_events", -1)))
+            except Exception:  # noqa: BLE001 - hint misses are never fatal
+                entry = None
+            store[key] = entry
+        entry = store[key]
+        if entry is None or entry[1] != n:
+            return None
+        return entry[0]
+
+    def _put_hint(
+        self, ctx: Any, run_id: str, member: str, observed: int, n: int
+    ) -> None:
+        key = self._hint_key(ctx, run_id, member)
+        self._hint_store(ctx)[key] = (observed, n)
+        try:
+            storage = ctx._get_storage_for_data_name(member)
+            storage.save_metadata(
+                key, {"max_slot_count": int(observed), "n_events": int(n)},
+                run_id,
+            )
+        except Exception as e:  # noqa: BLE001
+            logger.debug("capacity hint persist failed for %s: %s", key, e)
+
+    def _drop_hint(self, ctx: Any, run_id: str, member: str) -> None:
+        key = self._hint_key(ctx, run_id, member)
+        self._hint_store(ctx)[key] = None
+        try:
+            storage = ctx._get_storage_for_data_name(member)
+            storage.save_metadata(key, {}, run_id)
+        except Exception:  # noqa: BLE001
+            pass
+
+    @staticmethod
+    def _capacity_targets(m: str, device_members: List[str], cfgs: Dict,
+                          support_hit_cfg) -> List[dict]:
+        """The kernel configs whose capacity member ``m``'s hint sets: its
+        own, and for hit the support stage's."""
+        targets = [cfgs[m]] if m in device_members else []
+        if m == "hit" and support_hit_cfg is not None:
+            targets.append(support_hit_cfg)
+        return targets
+
+    def _apply_capacity_hints(
+        self, ctx: Any, run_id: str, device_members: List[str],
+        cfgs: Dict, support_hit_cfg, n: int,
+    ) -> Dict[str, int]:
+        """Shrink slot capacities to the smallest bucket covering the
+        recorded hint; returns {member: original capacity} for the stale-
+        hint rerun path. Only ever shrinks -- a hint above the configured
+        capacity never widens it."""
+        if not ctx.config.get("capacity_hints", True):
+            return {}
+        hinted: Dict[str, int] = {}
+        for m, (_count_key, cap_key) in _SLOT_OVERFLOW.items():
+            targets = self._capacity_targets(
+                m, device_members, cfgs, support_hit_cfg
+            )
+            if not targets:
+                continue
+            hint = self._get_hint(ctx, run_id, m, n)
+            if hint is None:
+                continue
+            new = next((b for b in _CAP_BUCKETS if b >= max(hint, 1)), None)
+            if new is None:
+                continue
+            for cfg in targets:
+                if new < cfg[cap_key]:
+                    hinted.setdefault(m, cfg[cap_key])
+                    cfg[cap_key] = new
+        return hinted
+
+    def _record_capacity_hints(
+        self, ctx: Any, run_id: str, host_out: Dict, n: int,
+    ) -> None:
+        for m in _SLOT_OVERFLOW:
+            for key in (m + "__max_count", "__" + m + "_support__max_count"):
+                if key in host_out:
+                    self._put_hint(ctx, run_id, m, int(host_out[key]), n)
+                    break
 
     def _finalize_member(
         self, ctx: Any, m: str, plugins: Dict, cfgs: Dict, support_hit_cfg,
         host_out: Dict, slot_out: Dict, meta: dict, lengths: np.ndarray,
-        n: int, bf_baselines=None,
+        n: int, offset: Optional[int] = None, bf_baselines=None,
     ):
-        """Finalize ONE device member from the copied outputs."""
+        """Finalize ONE device member from the copied outputs.
+
+        ``offset=None`` = single-run path (whole arrays); otherwise the
+        batched path passes the run's offset in the concatenated batch, so
+        dense leaves slice rows [offset, offset + n) and slot rows rebase.
+        """
+
+        def dense(name):
+            if offset is None:
+                return host_out[name]
+            return {k: v[offset:offset + n] for k, v in host_out[name].items()}
+
+        def slot_rows(name):
+            rows, slots = slot_out[name]
+            if offset is None:
+                return rows, slots
+            # compact_slots front-packs in row-major order, so each run's
+            # rows are one sorted stretch
+            lo = int(np.searchsorted(rows, offset))
+            hi = int(np.searchsorted(rows, offset + n))
+            return rows[lo:hi] - offset, {f: c[lo:hi] for f, c in slots.items()}
+
         if m == "basic_features":
             pol = np.where(
                 meta["polarity"] == 0, np.int8(-1), meta["polarity"]
             ).astype(np.int8)
             return plugins[m].finalize(
-                cfgs[m], host_out[m], bf_baselines, pol,
+                cfgs[m], dense(m), bf_baselines, pol,
                 meta["timestamp"], meta["board"], meta["channel"],
             )
         if m == "hit":
-            rows, slots = slot_out[m]
+            rows, slots = slot_rows(m)
             return plugins[m].finalize_compact(
-                cfgs[m], rows, slots, host_out[m + "__overflow"], meta, n,
+                cfgs[m], rows, slots,
+                self._member_overflow(host_out, m, offset, n), meta, n,
             )
         if m == "hit_threshold":
-            rows, slots = slot_out[m]
+            rows, slots = slot_rows(m)
             return plugins[m].finalize_compact(
-                cfgs[m], rows, slots, host_out[m + "__overflow"],
+                cfgs[m], rows, slots,
+                self._member_overflow(host_out, m, offset, n),
                 meta, np.asarray(lengths, np.int64), n,
             )
         if m == "waveform_width_integral":
-            return plugins[m].finalize(cfgs[m], host_out[m], meta, n)
+            return plugins[m].finalize(cfgs[m], dense(m), meta, n)
         if m == "waveform_width":
             hit_cfg = cfgs.get("hit") or support_hit_cfg
             dt_ns = ctx._plugins["hit"]._resolve_dt(hit_cfg, meta, n)
-            rows, slots = slot_out[m]
+            rows, slots = slot_rows(m)
             return plugins[m].finalize_compact(
                 cfgs[m], rows, slots, meta, dt_ns
             )
         raise KeyError(m)
+
+    @staticmethod
+    def _member_overflow(host_out: Dict, m: str, offset: Optional[int],
+                         n: int) -> int:
+        over = host_out[m + "__overflow"]
+        if offset is None:
+            return int(over)
+        return int(over[offset:offset + n].sum())
 
     @staticmethod
     def _finalize_host_members(
@@ -470,6 +740,206 @@ class WaveChainFusion:
                     # shares it (standalone runs the merge once per plugin)
                     triples[ckey] = merge_from_table(cfgs[m], hits_th)
                 results[m] = emit[m](triples[ckey])
+
+    # -- multi-run batched execution ----------------------------------------
+
+    def compute_many(
+        self, ctx: Any, run_members: List[Tuple[str, List[str]]]
+    ) -> Dict[str, Dict[str, Any]]:
+        """Run the fused bundle for SEVERAL runs in as few device programs
+        as possible.
+
+        The reference fans multiple runs out over host processes
+        (reference: waveform_analysis/core/data/batch_processor.py:197);
+        here runs whose device configuration matches are CONCATENATED along
+        the event axis and run as ONE program, so R runs pay one upload,
+        one kernel launch per stage and one copy back instead of R of each.
+        Outputs are split at the run boundaries on the host and
+        finalized/saved per run -- bit-identical to per-run execution
+        (tests/test_torch_batched.py).
+
+        The concatenated event count is padded up to a multiple of
+        ``config["fused_batch_bucket"]`` (default 4096) with zero-length
+        events (no samples -> no features, no peaks, no hits), and narrower
+        runs are padded to the group's widest L. The capacity hints are not
+        applied here: the group runs at the configured capacities.
+        """
+        out: Dict[str, Dict[str, Any]] = {}
+
+        # per-run prep under that run's prepared request (run_config may
+        # differ per run, so group keys include the device-relevant cfg)
+        groups: Dict[Tuple, List[dict]] = {}
+        for run_id, members in run_members:
+            ctx.config_domain.prepare_request(run_id)
+            with ctx.profiler.time("fusion.batched.prep_run"):
+                prep = self._prep_run(ctx, run_id, members)
+            if prep is None:  # empty run: finalize immediately
+                out[run_id] = self._empty_results(members)
+                continue
+            groups.setdefault(prep.pop("group_key"), []).append(prep)
+
+        for preps in groups.values():
+            out.update(self._dispatch_group(ctx, preps))
+        return out
+
+    def _prep_run(self, ctx: Any, run_id: str, members: List[str]):
+        """Load + host-prep one run's bundle inputs; None for empty runs."""
+        from waveformanalysis_tpu_torch.plugins.builtin.peak_finding import (
+            _load_wave_matrix,
+        )
+
+        device_members = [m for m in members if m in FUSED_DEVICE_MEMBERS]
+        plugins = {m: ctx._plugins[m] for m in members}
+        cfgs = {m: plugins[m].kernel_config(ctx) for m in members}
+        support_hit_cfg = self._support_hit_cfg(ctx, device_members)
+        load_via = next(
+            (m for m in device_members if m != "waveform_width"), None
+        )
+        load_plugin = (
+            plugins[load_via] if load_via is not None else ctx._plugins["hit"]
+        )
+        waves, lengths, meta = _load_wave_matrix(
+            ctx, load_plugin, run_id, keep_integer_waves=True
+        )
+        n = len(lengths)
+        if n == 0:
+            return None
+
+        sign = np.where(meta["polarity"] > 0, 1.0, -1.0).astype(np.float32)
+        thresholds = np.zeros((n,), np.float32)
+        if "hit_threshold" in device_members:
+            thresholds = plugins["hit_threshold"].host_prep(
+                cfgs["hit_threshold"], ctx, run_id, meta
+            ).astype(np.float32)
+        bf_baselines = None
+        if "basic_features" in device_members:
+            bf_baselines = plugins["basic_features"].host_prep(
+                cfgs["basic_features"], ctx, run_id,
+                np.asarray(meta["baseline"], dtype=np.float64),
+                meta["board"], meta["channel"],
+            )
+
+        cfg_key = tuple(
+            (m, tuple((k, cfgs[m][k]) for k in _DEVICE_CFG_KEYS[m]))
+            for m in device_members
+        )
+        if support_hit_cfg is not None:
+            cfg_key += (("__hit_support", tuple(
+                (k, support_hit_cfg[k])
+                for k in _DEVICE_CFG_KEYS["hit"]
+            )),)
+        return {
+            "run_id": run_id,
+            "members": list(members),
+            "device_members": device_members,
+            "host_members": [m for m in members if m in FUSED_HOST_MEMBERS],
+            "plugins": plugins,
+            "cfgs": cfgs,
+            "support_hit_cfg": support_hit_cfg,
+            "waves": waves,  # a host array or a device-resident tensor
+            "lengths": lengths.astype(np.int32),
+            "sign": sign,
+            "baseline_f32": meta["baseline"].astype(np.float32),
+            "thresholds": thresholds,
+            "bf_baselines": bf_baselines,
+            "meta": meta,
+            "n": n,
+            "group_key": (tuple(members), cfg_key, _dtype_name(waves)),
+        }
+
+    @staticmethod
+    def _batch_waves(preps: List[dict], L: int, padded: int, dev):
+        """The group's (padded, L) wave matrix on ``dev``: zeros (the
+        padding rows and the columns past a narrower run's L), each run's
+        rows copied into their slice -- a device-resident run's on the
+        device, a host run's straight from its array, so no host matrix of
+        the whole group is assembled (fresh host pages of its size cost
+        more on the card's host than the copies; PERF.md)."""
+        dtype = getattr(torch, _dtype_name(preps[0]["waves"]))
+        waves = torch.zeros((padded, L), dtype=dtype, device=dev)
+        off = 0
+        for p in preps:
+            w = p["waves"]
+            if not isinstance(w, torch.Tensor):
+                w = _host_rows(w)
+            waves[off:off + p["n"], : w.shape[1]].copy_(w)
+            off += p["n"]
+        return waves
+
+    def _dispatch_group(
+        self, ctx: Any, preps: List[dict]
+    ) -> Dict[str, Dict[str, Any]]:
+        """One concatenated device program for runs with matching config."""
+        members = preps[0]["members"]
+        device_members = preps[0]["device_members"]
+        cfgs = preps[0]["cfgs"]
+        plugins = preps[0]["plugins"]
+        support_hit_cfg = preps[0]["support_hit_cfg"]
+
+        L = max(p["waves"].shape[1] for p in preps)
+        total = sum(p["n"] for p in preps)
+        bucket = int(ctx.config.get("fused_batch_bucket", 4096))
+        padded = -(-total // bucket) * bucket if bucket > 1 else total
+
+        lengths = np.zeros((padded,), np.int32)  # padding: zero-length events
+        sign = np.ones((padded,), np.float32)
+        baselines = np.zeros((padded,), np.float32)
+        thresholds = np.zeros((padded,), np.float32)
+        offsets = []
+        off = 0
+        for p in preps:
+            n = p["n"]
+            lengths[off:off + n] = p["lengths"]
+            sign[off:off + n] = p["sign"]
+            baselines[off:off + n] = p["baseline_f32"]
+            thresholds[off:off + n] = p["thresholds"]
+            offsets.append(off)
+            off += n
+
+        dev = ctx.device
+        with ctx.profiler.time("fusion.batched.upload"):
+            dev_in = (self._batch_waves(preps, L, padded, dev),) + tuple(
+                to_device(x, dev) for x in (lengths, sign, baselines, thresholds)
+            )
+        with ctx.profiler.time("fusion.batched.device_program"):
+            out = self._run_stages(
+                tuple(device_members), cfgs, plugins, support_hit_cfg, *dev_in
+            )
+            compacted, counters = self._compact(
+                device_members, cfgs, support_hit_cfg, out,
+                per_event_overflow=True,
+            )
+            if dev.type == "cuda":  # the phase ends when the device is done
+                torch.cuda.synchronize(dev)
+        del dev_in
+        with ctx.profiler.time("fusion.batched.fetch"):
+            host_out, slot_out = self._fetch(
+                device_members, out, compacted, counters
+            )
+        del out, compacted, counters
+
+        results_by_run: Dict[str, Dict[str, Any]] = {}
+        with ctx.profiler.time("fusion.batched.finalize"):
+            for p, off in zip(preps, offsets):
+                run_id, n, meta = p["run_id"], p["n"], p["meta"]
+                results: Dict[str, Any] = {}
+                for m in p["device_members"]:
+                    results[m] = self._finalize_member(
+                        ctx, m, p["plugins"], p["cfgs"],
+                        p["support_hit_cfg"], host_out, slot_out, meta,
+                        p["lengths"], n, offset=off,
+                        bf_baselines=p["bf_baselines"],
+                    )
+                self._finalize_host_members(
+                    ctx, run_id, p["host_members"], p["plugins"], p["cfgs"],
+                    results,
+                )
+                results_by_run[run_id] = results
+        logger.debug(
+            "batched fused %s over %d runs / %d waveforms (padded %d) in one "
+            "device program", members, len(preps), total, padded,
+        )
+        return results_by_run
 
     @staticmethod
     def _empty_results(members: List[str]) -> Dict[str, Any]:

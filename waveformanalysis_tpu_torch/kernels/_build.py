@@ -18,6 +18,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -34,6 +35,17 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "--fmad=false", "-Xptxas", "-v",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of the kernel launches a
+    wrapper made: under a lock, since several threads (a thread pool of
+    Contexts) launch through one wrapper."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 @dataclass

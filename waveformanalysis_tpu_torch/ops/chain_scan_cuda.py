@@ -34,6 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
+from waveformanalysis_tpu_torch.kernels._build import count_launch
 from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
 from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
 from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch
@@ -180,7 +181,7 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, to
     if err != 0:
         raise RuntimeError(f"chain_scan kernel launch failed: cudaError {err}")
     if n:  # the C entry launches nothing for an empty batch
-        chain_scan_cuda.launches += 1
+        count_launch(chain_scan_cuda)
     return with_overflow(outs, cfg)
 
 
@@ -345,7 +346,7 @@ def find_peaks_scan(
     if err != 0:
         raise RuntimeError(f"peaks_scan kernel launch failed: cudaError {err}")
     if n:
-        find_peaks_scan.launches += 1
+        count_launch(find_peaks_scan)
     return outs
 
 
@@ -426,7 +427,7 @@ def threshold_hits_scan(
     if err != 0:
         raise RuntimeError(f"hits_scan kernel launch failed: cudaError {err}")
     if n:
-        threshold_hits_scan.launches += 1
+        count_launch(threshold_hits_scan)
     return outs
 
 

@@ -26,6 +26,7 @@ from typing import Dict, Optional
 
 import torch
 
+from waveformanalysis_tpu_torch.kernels._build import count_launch
 from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     _OUTS,
@@ -144,7 +145,7 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg,
     if err != 0:
         raise RuntimeError(f"chain_tile kernel launch failed: cudaError {err}")
     if n:  # the C entry launches nothing for an empty batch
-        chain_tile_cuda.launches += 1
+        count_launch(chain_tile_cuda)
     return with_overflow(outs, cfg)
 
 

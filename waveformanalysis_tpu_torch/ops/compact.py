@@ -52,8 +52,10 @@ def compact_slots(stage_out, fields: Sequence[str]):
 def decode_slot_matrix(
     chunk: np.ndarray, fields: Sequence[str], dtypes: Sequence[str]
 ) -> Tuple[np.ndarray, Dict[str, np.ndarray]]:
-    """Host-side: (rows, {field: column}) from a fetched compact matrix."""
-    rows = chunk[:, 0]
+    """Host-side: (rows, {field: column}) from a fetched compact matrix
+    (each column contiguous: the batched dispatch binary-searches ``rows``
+    for every run's boundaries)."""
+    rows = np.ascontiguousarray(chunk[:, 0])
     slots: Dict[str, np.ndarray] = {}
     for j, (f, dt) in enumerate(zip(fields, dtypes)):
         col = np.ascontiguousarray(chunk[:, j + 1])

@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from waveformanalysis_tpu_torch.kernels._build import count_launch
 from waveformanalysis_tpu_torch.ops import filtering as FLT
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     SMEM_BYTES,
@@ -125,7 +126,7 @@ def sosfilt_cuda(x_t: torch.Tensor, sos: np.ndarray, zi: torch.Tensor) -> torch.
     if err != 0:
         raise RuntimeError(f"sosfilt kernel launch failed: cudaError {err}")
     if n and T:
-        sosfilt_cuda.launches += 1
+        count_launch(sosfilt_cuda)
     return y_t
 
 
@@ -164,7 +165,7 @@ def sosfiltfilt_cuda(x: torch.Tensor, sos: np.ndarray, fused: bool = True) -> to
     if err != 0:
         raise RuntimeError(f"sosfiltfilt kernel launch failed: cudaError {err}")
     if n:
-        sosfiltfilt_cuda.launches += 1
+        count_launch(sosfiltfilt_cuda)
     return out
 
 

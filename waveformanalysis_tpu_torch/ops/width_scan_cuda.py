@@ -32,6 +32,7 @@ from typing import Dict
 
 import torch
 
+from waveformanalysis_tpu_torch.kernels._build import count_launch
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     _check,
     _devices,
@@ -153,7 +154,7 @@ def width_crossings_scan(
     if err != 0:
         raise RuntimeError(f"width_scan kernel launch failed: cudaError {err}")
     if n and K:
-        width_crossings_scan.launches += 1
+        count_launch(width_crossings_scan)
     return outs
 
 
