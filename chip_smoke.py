@@ -56,7 +56,15 @@ version on the card, and drives the port's main paths:
   ``BatchProcessor`` with the ``device`` executor (``on_error="raise"``)
   and the thread executor; the batched multi-run demo. Phase 3 holds K2,
   K3 and K4 on a batched group's matrix too (runs of 256 and 200 samples,
-  zero-length padding rows; K2 and K3 at K = 8, 16 and 32).
+  zero-length padding rows; K2 and K3 at K = 8, 16 and 32);
+- slice 11, chunked streaming on slice 8's files under
+  ``get_profile("streaming")``: ``get_stream(run, name,
+  executor_type="device")`` for basic_features, hit, hit_threshold and
+  waveform_width_integral (K2 and K3 once per chunk), each merged stream =
+  the static table and the device executor = the host serial engine, bit
+  for bit; ``signal_peaks_stream`` persisted chunk by chunk and read back
+  from the cache; the memory held flat; a 16,384 run's chunks against the
+  port's CPU Context; the streaming demo.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -252,6 +260,19 @@ V1725_FILES = 4
 V1725_DT_TICKS = 2_500  # between events (4 ns ticks)
 # the sort and padded-gather primitives' sizes, host against device
 N_PRIMITIVES = (262_144, 1_048_576)
+
+# slice 11: chunked streaming over the ingest route's files under
+# get_profile("streaming"). The four static names with derived device hooks
+# stream through executor_type="device" at the default chunk_size (50,000:
+# 6 chunks of 262,144); hit and hit_threshold with a left halo of one
+# wave (WAVE_LEN x dt), the hits' time partition. signal_peaks_stream runs
+# at its own default chunk of 4,096 (64 chunks)
+STREAM_NAMES = ("basic_features", "hit", "hit_threshold", "waveform_width_integral")
+STREAM_KERNEL = {"hit": "peaks_scan", "hit_threshold": "hits_scan",
+                 "signal_peaks_stream": "peaks_scan"}
+STREAM_CHUNK = 50_000  # StreamingConfig's default chunk_size
+STREAM_CPU_CHUNK = 4_096  # the N_INGEST_CPU run against the CPU Context: 4 chunks
+SIGNAL_PEAKS_CHUNK = 4_096  # signal_peaks_stream's default chunk
 
 
 _T0 = time.perf_counter()
@@ -1294,10 +1315,247 @@ def primitives_phase(dev, smi: str, sizes) -> None:
                   f"gather) {ms['device']}", flush=True)
 
 
+def stream_rows(name: str, table):
+    """A merged stream or a static table of ``name`` in one row order: the
+    hit tables by (record_id, position), the event tables by event_index."""
+    a = table.to_numpy()
+    if name in ("hit", "hit_threshold"):
+        return table[np.lexsort((a["position"], a["record_id"]))]
+    return table[np.argsort(a["event_index"], kind="stable")]
+
+
+def check_chunks(ref: list, out: list, tag: str, exact: bool = True) -> float:
+    """Two chunk streams chunk for chunk: the same (start, end) windows and
+    the same tables, bit for bit or (``exact`` False) ints exactly and f32
+    within ATOL/RTOL. Returns the largest f32 |diff|."""
+    check(len(ref) == len(out) > 0, f"{tag}: {len(out)} chunks, expected {len(ref)}")
+    worst = 0.0
+    for i, (r, o) in enumerate(zip(ref, out)):
+        check((r.start, r.end) == (o.start, o.end), f"{tag} chunk {i}: window "
+              f"{(o.start, o.end)} != {(r.start, r.end)}")
+        if exact:
+            check_identical(r.data, o.data, f"{tag} chunk {i}")
+        else:
+            worst = max(worst, compare_tables(r.data, o.data, f"{tag} chunk {i}")[0])
+    return worst
+
+
+def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
+                    cpu_source: str) -> dict:
+    """Slice 11's main path: chunked streaming over the ingest route's files
+    (``source``, N_INGEST waveforms, linked under a fresh run name) by a
+    Context with ``get_profile("streaming")``. For each of STREAM_NAMES,
+    ``get_stream(run, name, executor_type="device")`` at the default
+    chunk_size, cold and then 2 warm runs: K2 (hit) and K3 (hit_threshold)
+    launch once per chunk and nothing else launches; every chunk holds host
+    columns; the merged stream = the static table bit for bit (hit and
+    hit_threshold with a left halo of one wave); the device executor = the
+    host serial engine chunk for chunk (and, for hit, = the thread pool,
+    which launches K2 once per chunk from 2 threads). Then
+    ``get_data(run, "signal_peaks_stream")`` at its default chunk (64
+    launches of K2) persists its chunks (the plugin set to
+    save_when="always"), a second get_data reads them back from the cache
+    and equals the first, and 2 warm runs with its cache cleared; the
+    memory allocated after each stream stays flat; one warm hit stream
+    under torch.profiler. Last, the ``cpu_source`` run (N_INGEST_CPU) on the
+    card against the port's CPU Context, chunk for chunk at 4,096 rows a
+    chunk. Returns the launch counts of each stream's first run."""
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.dtypes import chunk as C
+    from waveformanalysis_tpu_torch.plugins.device_stream import DeviceKernelStream
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.plugins.streaming import (
+        StreamingConfig,
+        get_streaming_context,
+    )
+
+    card = on_card(dev)
+
+    def sync() -> None:
+        if card:
+            torch.cuda.synchronize(dev)
+
+    def held() -> int:
+        return torch.cuda.memory_allocated(dev) if card else 0
+
+    def reset() -> None:
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def check_launches(name: str, n_chunks: int, tag: str) -> dict:
+        got = {k: fn.launches for k, fn in kernels.items()}
+        if card:
+            want = {k: n_chunks if STREAM_KERNEL.get(name) == k else 0 for k in kernels}
+            check(got == want, f"{tag}: launches {got}, expected {want}")
+        return got
+
+    def timed(call) -> tuple:
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        chunks = list(call())
+        sync()
+        return chunks, time.perf_counter() - t0
+
+    def nonzero(got: dict) -> dict:
+        return {k: v for k, v in got.items() if v}
+
+    def walls_text(walls: list, n: int) -> str:
+        med = statistics.median(walls[1:])
+        return (f"cold {walls[0] * 1e3:.1f} ms, warm median of {len(walls) - 1} "
+                f"{med * 1e3:.1f} ms = {n / med:.0f} waveforms/s (warm runs "
+                f"{[round(w * 1e3, 1) for w in walls[1:]]} ms)")
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = ingest_context(Context, get_profile("streaming"), daq, f"{tmp}/stream", dev.type)
+        run = link_run(daq, source, "stream0")
+        sc = get_streaming_context(ctx)
+        st = ctx.get_data(run, "st_waveforms")
+        n = len(st)
+        ctx.get_data(run, "filtered_waveforms")
+        halo = {"required_halo_left_ns": float(WAVE_LEN * int(C._col(st, "dt")[0]))}
+        del st
+        static, static_ms = {}, {}
+        for name in STREAM_NAMES:  # the static tables, their inputs cached:
+            for i in range(2):  # cold, then warm with its cache cleared
+                if i:
+                    ctx.flush_saves()
+                    ctx.clear_cache_for(run, name)
+                t0 = time.perf_counter()
+                static[name] = ctx.get_data(run, name)
+                sync()
+                static_ms.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        ctx.flush_saves()
+        n_chunks = -(-n // STREAM_CHUNK)
+        sync()
+        memory = [held()]
+        for name in STREAM_NAMES:
+            kw = halo if name in ("hit", "hit_threshold") else {}
+            walls, phases = [], []
+            for i in range(3):  # cold, then 2 warm runs
+                ctx.profiler.reset()
+                chunks, wall = timed(lambda: sc.get_stream(run, name, executor_type="device",
+                                                           **kw))
+                walls.append(wall)
+                phases.append({k.rsplit(".", 1)[1]: v["total_s"] for k, v in
+                               ctx.profiler.stats().items() if k.startswith("stream.device.")})
+                got = check_launches(name, n_chunks, f"stream {name} run {i}")
+                check(len(chunks) == n_chunks, f"stream {name}: {len(chunks)} chunks, "
+                      f"expected {n_chunks}")
+                check(all(isinstance(v, np.ndarray) for c in chunks
+                          for v in c.data.columns.values()),
+                      f"stream {name}: a chunk holds a column on the device")
+                memory.append(held())
+                if i == 0:
+                    first, launches[name] = chunks, got
+                del chunks
+            check_identical(stream_rows(name, static[name]),
+                            stream_rows(name, sc.merge_stream(first, sort=False)),
+                            f"stream {name} merged")
+            adapter = DeviceKernelStream.for_data_name(ctx, name)
+            cfg = StreamingConfig.resolve(ctx, adapter)
+            for key, value in kw.items():
+                setattr(cfg, key, value)
+            check_chunks(first, list(adapter._compute_serial(
+                ctx, run, adapter.input_stream(ctx, run, cfg), cfg)),
+                f"stream {name} device executor vs host serial")
+            pool, halo_txt = "", f", left halo {kw[next(iter(kw))]:g} ns" if kw else ""
+            if name == "hit":  # the host thread pool launching K2 from 2 threads
+                cfg.parallel, cfg.max_workers = True, 2
+                par, t_par = timed(lambda: adapter._compute_parallel(
+                    ctx, run, adapter.input_stream(ctx, run, cfg), cfg))
+                check_launches(name, n_chunks, "stream hit thread pool")
+                check_chunks(first, par, "stream hit thread pool vs device executor")
+                pool = (f"; the thread pool (2 workers) = the device executor chunk for "
+                        f"chunk, K2 x{n_chunks} from 2 threads, {t_par * 1e3:.1f} ms")
+                del par
+            print(f"main path 11 stream {name} {n}x{WAVE_LEN} ({smi}): get_stream(run, "
+                  f"{name!r}, executor_type='device'{halo_txt}) "
+                  f"{n_chunks} chunks of {STREAM_CHUNK}, launches {nonzero(got)}; merged = the static "
+                  f"table bit for bit ({len(static[name])} rows); = the host serial engine "
+                  f"chunk for chunk{pool}; {walls_text(walls, n)}; warm phases ms "
+                  f"{ {k: round(statistics.median(p[k] for p in phases[1:]) * 1e3, 1) for k in phases[1]} }"
+                  f"; static get_data cold {static_ms[name][0]:.1f} ms, warm "
+                  f"{static_ms[name][1]:.1f} ms", flush=True)
+            del first
+
+        # signal_peaks_stream through get_data: its chunks persist as they
+        # stream (the JAX package's plugin never saves; a user keeps its
+        # chunks with save_when="always") and a second get_data reads them
+        plugin = ctx.get_plugin("signal_peaks_stream")
+        plugin.save_when = "always"
+        sp_chunks = -(-n // SIGNAL_PEAKS_CHUNK)
+        walls = []
+        for i in range(3):
+            if i:
+                ctx.clear_cache_for(run, "signal_peaks_stream")
+            chunks, wall = timed(lambda: ctx.get_data(run, "signal_peaks_stream"))
+            walls.append(wall)
+            got = check_launches("signal_peaks_stream", sp_chunks, f"signal_peaks_stream run {i}")
+            check(len(chunks) == sp_chunks, f"signal_peaks_stream: {len(chunks)} chunks")
+            memory.append(held())
+            if i == 0:
+                first, launches["signal_peaks_stream"] = chunks, got
+        t0 = time.perf_counter()
+        cached = ctx.get_data(run, "signal_peaks_stream")
+        t_read = time.perf_counter() - t0
+        streamed = C._concat([c.data for c in first]).to_numpy()
+        cached = cached.to_numpy() if hasattr(cached, "to_numpy") else np.asarray(cached)
+        check(cached.dtype == streamed.dtype and len(cached) == len(streamed) and all(
+            np.array_equal(cached[f], streamed[f]) for f in streamed.dtype.names),
+            "signal_peaks_stream: the cached table != the streamed chunks")
+        print(f"main path 11 signal_peaks_stream {n}x{WAVE_LEN} ({smi}): get_data(run, "
+              f"'signal_peaks_stream') on filtered_waveforms, {sp_chunks} chunks of "
+              f"{SIGNAL_PEAKS_CHUNK}, launches {nonzero(launches['signal_peaks_stream'])}, "
+              f"{len(streamed)} hits persisted chunk by chunk; a second get_data read "
+              f"them from the cache in {t_read * 1e3:.1f} ms, = the streamed chunks bit for "
+              f"bit; {walls_text(walls, n)} (each with its save; cache cleared before the "
+              f"warm runs)", flush=True)
+        del first, chunks, cached, streamed
+        sync()
+        memory.append(held())
+        check(max(memory) - min(memory) <= 16 << 20, f"streaming: memory allocated after "
+              f"each stream {memory} B is not flat")
+        print(f"main path 11 memory allocated before the streams and after each "
+              f"({len(memory) - 1} streams): {sorted(set(memory))} B, flat", flush=True)
+        if card:
+            ours = profile_call(ctx, lambda: list(sc.get_stream(
+                run, "hit", executor_type="device", **halo)),
+                f"stream hit {n}x{WAVE_LEN}, one warm run", smi)
+            check(any("peaks" in k for k in ours), f"stream hit profile: kernels {ours}")
+        ctx.flush_saves()
+        del ctx, sc, static
+
+        # the card's chunks against the port's CPU Context's
+        cmp_run = link_run(daq, cpu_source, "stream_cmp")
+        both = [ingest_context(Context, get_profile("streaming"), daq, f"{tmp}/cmp_{d}", d)
+                for d in ("cpu", dev.type)]
+        worst = (0.0, "")
+        for name in STREAM_NAMES + ("signal_peaks_stream",):
+            kw = halo if name in ("hit", "hit_threshold") else {}
+            if name == "signal_peaks_stream":
+                got = [list(c.get_data(cmp_run, name)) for c in both]
+            else:
+                got = [list(get_streaming_context(c).get_stream(
+                    cmp_run, name, chunk_size=STREAM_CPU_CHUNK, executor_type="device", **kw))
+                    for c in both]
+            worst = max(worst, (check_chunks(*got, f"stream {name} card vs CPU", exact=False),
+                                name))
+        print(f"main path 11 at {N_INGEST_CPU}x{WAVE_LEN}: the card's chunks of "
+              f"{list(STREAM_NAMES) + ['signal_peaks_stream']} (chunks of {STREAM_CPU_CHUNK}) = "
+              f"the CPU Context's chunk for chunk (windows exact, ints exact, max |f32 diff| "
+              f"{worst[0]:.3g} in {worst[1]})", flush=True)
+        for c in both:
+            c.flush_saves()
+    return launches
+
+
 def examples_phase() -> None:
-    """The port's two records examples and the batched multi-run demo, as
-    a user runs them (on the card by default)."""
-    for name in ("records_pipeline_example", "records_view_example", "batched_multirun_demo"):
+    """The port's two records examples, the batched multi-run demo and the
+    streaming demo, as a user runs them (on the card by default)."""
+    for name in ("records_pipeline_example", "records_view_example", "batched_multirun_demo",
+                 "streaming_demo"):
         proc = subprocess.run([sys.executable, "-m", f"waveformanalysis_tpu_torch.examples.{name}"],
                               capture_output=True, text=True, timeout=600, cwd=ROOT)
         check(proc.returncode == 0, f"{name} failed: {proc.stderr.strip()[-3000:]}")
@@ -2225,6 +2483,7 @@ def main() -> None:
     # ---- phases 5c-5e: slice 8, the path from DAQ files -----------------
     # ---- phases 5f-5i: slice 9, records ingest on the same files ----------
     # ---- phase 5k: slice 10, the batched multi-run path on the files ------
+    # ---- phase 5l: slice 11, chunked streaming on the files ---------------
     with tempfile.TemporaryDirectory() as files:
         daq = f"{files}/DAQ"
         ingest_launches, written = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU, daq)
@@ -2234,6 +2493,9 @@ def main() -> None:
         stamp("phases 5c and 5f-5g (ingest, records)")
         batched_file_launches = batched_files_phase(dev, smi, kernels, daq, "ingest3")
         stamp("phase 5k (batched, files)")
+        stream_launches = streaming_phase(dev, smi, kernels, daq, "ingest3", "cmp")
+        torch.cuda.empty_cache()
+        stamp("phase 5l (streaming)")
     v1725_phase(dev, smi, kernels, N_V1725)
     primitives_phase(dev, smi, N_PRIMITIVES)
     stamp("phases 5h-5i (V1725, primitives)")
@@ -2680,6 +2942,8 @@ def main() -> None:
             # runs from the files (K2 there is the standalone hit, one a run)
             "batched_launches": {"injected": batched_launches[name],
                                  "files": batched_file_launches[name]},
+            # slice 11's streams over the ingest files: once per chunk
+            "stream_launches": {s: got[name] for s, got in stream_launches.items()},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

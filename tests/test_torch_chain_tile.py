@@ -243,9 +243,8 @@ def test_fused_chain_demo_on_cpu():
 
 
 # JAX facade names whose modules the port does not have yet (ROADMAP
-# Queue 1: streaming, multi-device, surface)
+# Queue 1: multi-device, surface)
 NOT_YET_PORTED = (
-    "Chunk", "StreamingPlugin", "StreamingContext", "get_streaming_context",
     "DataExporter", "DependencyAnalyzer",
     "wrap_strax_plugin", "StraxContextAdapter", "PluginLoader", "enable_hot_reload",
     "PluginHotReloader", "CacheManager", "PipelineServer", "make_sharded_chain",

@@ -10,7 +10,7 @@ column must be equal, exactly.
 Also pinned here: the adapter-inference repair (the port's
 ``config/adapter_info.py`` read a ``formats`` package the port did not
 have, so no option was ever inferred from the DAQ adapter), the
-``device_unpack`` and records set at work and the streaming refusal, the
+``device_unpack`` and records set at work and the streaming profile, the
 default profile = the JAX package's ``tpu_default``, and the native
 decoder's build directory.
 """
@@ -267,8 +267,8 @@ def test_st_waveforms_options_match_jax(tmp_path):
 def test_device_unpack_records_and_streaming_raise(tmp_path):
     """The V1725 device unpack and the records set are ported (slice 9):
     the unpack gives the host walk's st_waveforms and the records set its
-    three plugins. The streaming profile is not ported: it raises
-    NotImplementedError naming its ROADMAP item."""
+    three plugins. The streaming profile is ported (slice 11): it is the
+    JAX package's, the default profile plus signal_peaks_stream."""
     run = _v1725_run(tmp_path / "DAQ", n_events=4)
     _, tctx = _contexts(tmp_path, run.parent, "v1725", {"st_waveforms": {"device_unpack": True}})
     _, host = _contexts(tmp_path / "host", run.parent, "v1725")
@@ -277,8 +277,9 @@ def test_device_unpack_records_and_streaming_raise(tmp_path):
     assert [p.provides for p in tsets.get_plugin_set("records")] == [
         p.provides for p in jsets.get_plugin_set("records")] == list(RECORDS_SET)
     for name in ("streaming", "streaming_default"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 6"):
-            tsets.get_profile(name)
+        provides = [p.provides for p in tsets.get_profile(name)]
+        assert provides == [p.provides for p in jsets.get_profile(name)]
+        assert provides[-1] == "signal_peaks_stream"
 
 
 def test_default_profile_is_tpu_default_minus_records():

@@ -58,6 +58,11 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.execution.load_balancer",
     "waveformanalysis_tpu_torch.data.batch_processor",
     "waveformanalysis_tpu_torch.examples.batched_multirun_demo",
+    "waveformanalysis_tpu_torch.dtypes.chunk",
+    "waveformanalysis_tpu_torch.plugins.streaming",
+    "waveformanalysis_tpu_torch.plugins.device_stream",
+    "waveformanalysis_tpu_torch.plugins.builtin.signal_peaks",
+    "waveformanalysis_tpu_torch.examples.streaming_demo",
 )
 
 

@@ -23,8 +23,8 @@ JAX package                     port
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
-Names whose modules are not ported yet (streaming, the sharded chains, DAQ
-and plotting utilities, ...) are absent: asking for one raises
+Names whose modules are not ported yet (the sharded chains, DAQ and
+plotting utilities, ...) are absent: asking for one raises
 ``AttributeError``.
 
 Ported so far:
@@ -56,7 +56,14 @@ Ported so far:
   the host execution helpers (``ExecutorManager``, ``parallel_map``, ...;
   process pools ``spawn`` their workers), and the sticky slot-capacity
   hints of the single-run program; the demo
-  ``python -m waveformanalysis_tpu_torch.examples.batched_multirun_demo``.
+  ``python -m waveformanalysis_tpu_torch.examples.batched_multirun_demo``;
+- slice 11, chunked streaming: ``Chunk`` and its time algebra,
+  ``StreamingPlugin`` / ``StreamingContext`` (``get_streaming_context``),
+  the device chunk executor derived from the static plugins' own stages
+  (``get_stream(run, "hit", executor_type="device")`` launches K2 once per
+  chunk, ``hit_threshold`` K3) and ``signal_peaks_stream`` in
+  ``get_profile("streaming")``; the demo
+  ``python -m waveformanalysis_tpu_torch.examples.streaming_demo``.
 """
 
 from __future__ import annotations
@@ -76,12 +83,16 @@ _LAZY_API = {
     "ST_WAVEFORM_DTYPE": (_P + "dtypes.schema", "ST_WAVEFORM_DTYPE"),
     "RECORDS_DTYPE": (_P + "dtypes.schema", "RECORDS_DTYPE"),
     "create_record_dtype": (_P + "dtypes.schema", "create_record_dtype"),
+    "Chunk": (_P + "dtypes.chunk", "Chunk"),
     # plugin system
     "Plugin": (_P + "plugins.base", "Plugin"),
     "Option": (_P + "plugins.base", "Option"),
     "option": (_P + "plugins.base", "option"),
     "takes_config": (_P + "plugins.base", "takes_config"),
     "PluginSpec": (_P + "plugins.spec", "PluginSpec"),
+    "StreamingPlugin": (_P + "plugins.streaming", "StreamingPlugin"),
+    "StreamingContext": (_P + "plugins.streaming", "StreamingContext"),
+    "get_streaming_context": (_P + "plugins.streaming", "get_streaming_context"),
     # context / storage
     "Context": (_P + "context.context", "Context"),
     "MemmapStorage": (_P + "storage.memmap", "MemmapStorage"),

@@ -7,9 +7,7 @@ endtimes so interval-overlap queries are two binary searches; a small LRU
 caches recent query results; absolute-datetime queries convert through the
 run's TimeConverter.
 
-Port of ``waveformanalysis_tpu/data/query.py``. The endtime helpers it
-takes from the JAX package's ``dtypes/chunk.py`` are copied here until
-that module is ported (ROADMAP.md Queue 1, item 6).
+Port of ``waveformanalysis_tpu/data/query.py``.
 """
 
 from __future__ import annotations
@@ -22,38 +20,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from waveformanalysis_tpu_torch.dtypes import chunk as C
 from waveformanalysis_tpu_torch.foundation.time_conversion import TimeConverter
 
 logger = logging.getLogger(__name__)
-
-
-# -- endtime helpers (the JAX package's dtypes/chunk.py) -------------------
-
-def _has(data: Any, name: str) -> bool:
-    names = getattr(data, "field_names", None)
-    if names is None:
-        names = getattr(getattr(data, "dtype", None), "names", None) or ()
-    return name in names
-
-
-def _resolve_field(data: Any, field: str, default: str, fallback: str) -> str:
-    """Field-name fallback: time -> timestamp, length -> event_length."""
-    if _has(data, field) or field != default or not _has(data, fallback):
-        return field
-    return fallback
-
-
-def _endtime(data: Any, time_field: str) -> np.ndarray:
-    """The endtime field if present, else time + dt * length; records with
-    no length or dt are instantaneous."""
-    if _has(data, "endtime"):
-        return np.asarray(data["endtime"])
-    tf = _resolve_field(data, time_field, "time", "timestamp")
-    lf = _resolve_field(data, "length", "length", "event_length")
-    if not _has(data, lf) or not _has(data, "dt"):
-        return np.asarray(data[tf])
-    time = np.asarray(data[tf]).astype(np.int64)
-    return time + np.asarray(data["dt"]).astype(np.int64) * np.asarray(data[lf]).astype(np.int64)
 
 
 @dataclass
@@ -66,9 +36,9 @@ class TimeIndex:
 
     @classmethod
     def build(cls, data: Any, time_field: str = "time") -> "TimeIndex":
-        tf = _resolve_field(data, time_field, "time", "timestamp")
+        tf = C.resolve_time_field(data, time_field)
         times = np.asarray(data[tf]).astype(np.int64)
-        endtimes = np.asarray(_endtime(data, tf)).astype(np.int64)
+        endtimes = np.asarray(C.get_endtime(data, time_field=tf)).astype(np.int64)
         order = np.argsort(times, kind="stable")
         sorted_times = times[order]
         cummax = np.maximum.accumulate(endtimes[order])
@@ -195,7 +165,7 @@ class TimeRangeQueryEngine:
             data = data[np.asarray(data["channel"]) == channel]
         index_key = (run_id, data_name, channel, time_field)
         index = self._indexes.get(index_key)
-        if index is None or len(index) != len(data):
+        if index is None or len(index) != C._nrows(data):
             index = TimeIndex.build(data, time_field=time_field)
             self._indexes[index_key] = index
         rows = index.query(start, end)

@@ -255,15 +255,17 @@ class Table:
         for t in tables[1:]:
             if t.field_names != names:
                 raise ValueError("Cannot concatenate tables with differing fields")
-        on_device = any(
-            isinstance(v, torch.Tensor) for v in tables[0].columns.values()
-        )
-        if on_device:
-            cols = {k: torch.cat([t[k] for t in tables], dim=0) for k in names}
-        else:
-            cols = {
-                k: np.concatenate([t[k] for t in tables], axis=0) for k in names
-            }
+        # column by column: a tensor column of the first table stays a
+        # tensor on its device, a host column stays a host array
+        cols = {}
+        for k in names:
+            first = tables[0][k]
+            if isinstance(first, torch.Tensor):
+                cols[k] = torch.cat(
+                    [torch.as_tensor(t[k]).to(first.device) for t in tables], dim=0
+                )
+            else:
+                cols[k] = np.concatenate([_host(t[k]) for t in tables], axis=0)
         return Table(cols, schema=tables[0].schema, validate=False)
 
 

@@ -11,9 +11,9 @@ profile takes a device-neutral name, ``cuda_default`` (the JAX package's
 ``records``, ``wave_pool``, ``wave_pool_filtered`` among them); its device
 is the Context's (``config["device"]``). ``wave_source="auto"`` never
 picks records: a plugin reads the records pool only when its
-``wave_source`` is ``"records"``. ``streaming_default`` raises until
-ROADMAP.md Queue 1, item 6 ports the streaming family. The JAX package's ``jax`` / ``jax_accel`` profiles have
-no meaning here.
+``wave_source`` is ``"records"``. ``streaming_default`` adds
+``signal_peaks_stream`` to it, as in the JAX package. The JAX package's
+``jax`` / ``jax_accel`` profiles have no meaning here.
 """
 
 from __future__ import annotations
@@ -134,13 +134,15 @@ def cpu_default() -> List[Any]:
 
 
 def streaming_default() -> List[Any]:
-    """The full pipeline plus the chunked streaming plugin family: not
-    ported yet."""
-    raise NotImplementedError(
-        "the streaming profile (signal_peaks_stream and the streaming "
-        "executors) is not ported to the PyTorch package yet (ROADMAP.md "
-        "Queue 1, item 6)"
+    """Full pipeline + the chunked streaming plugin family: the default
+    profile plus ``signal_peaks_stream``, with the device chunk executor
+    available via ``StreamingContext.get_stream(..., executor_type="device")``
+    for every derivable static name."""
+    from waveformanalysis_tpu_torch.plugins.builtin.signal_peaks import (
+        SignalPeaksStreamPlugin,
     )
+
+    return cuda_default() + [SignalPeaksStreamPlugin()]
 
 
 PROFILES: Dict[str, Callable[[], List[Any]]] = {
