@@ -64,7 +64,15 @@ version on the card, and drives the port's main paths:
   the static table and the device executor = the host serial engine, bit
   for bit; ``signal_peaks_stream`` persisted chunk by chunk and read back
   from the cache; the memory held flat; a 16,384 run's chunks against the
-  port's CPU Context; the streaming demo.
+  port's CPU Context; the streaming demo;
+- slice 12, the surface on slice 8's files: ``PipelineServer`` on a
+  thread answering ``get_data`` (cold, warm, a cache hit) and
+  ``get_data_batched`` through its socket, with the memory held flat;
+  ``python -m waveformanalysis_tpu_torch.server`` as its own process on
+  the card, whose persisted tables a second Context loads with no compute,
+  equal to the port's CPU Context's; ``waveform-process`` writing
+  df_paired to CSV, equal to the card's table; ``waveform-cache`` info,
+  diagnose and a dry-run clean over the server's storage.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -98,6 +106,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -735,6 +744,11 @@ def step_ops(fn) -> dict:
 
 def on_card(dev) -> bool:
     return dev.type == "cuda"
+
+
+def nonzero(got: dict) -> dict:
+    """The launch counts that are not 0."""
+    return {k: v for k, v in got.items() if v}
 
 
 def ingest_phase(dev, smi: str, kernels: dict, n: int, n_cpu: int, daq: str) -> tuple:
@@ -1397,9 +1411,6 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
         sync()
         return chunks, time.perf_counter() - t0
 
-    def nonzero(got: dict) -> dict:
-        return {k: v for k, v in got.items() if v}
-
     def walls_text(walls: list, n: int) -> str:
         med = statistics.median(walls[1:])
         return (f"cold {walls[0] * 1e3:.1f} ms, warm median of {len(walls) - 1} "
@@ -1549,6 +1560,332 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
         for c in both:
             c.flush_saves()
     return launches
+
+
+SURFACE_RUNS = 2  # fresh runs of the server's batched request
+
+
+def short_tmpdir() -> str:
+    """A fresh directory whose path leaves room for a unix socket name
+    (about 107 bytes): under $TMPDIR, or /tmp where $TMPDIR is too long."""
+    d = tempfile.mkdtemp(prefix="wfa")
+    if len(d) > 90:
+        Path(d).rmdir()
+        d = tempfile.mkdtemp(prefix="wfa", dir="/tmp")
+    return d
+
+
+def csv_matches(ref, path: Path, tag: str) -> float:
+    """A CSV the CLI wrote against the DataFrame it came from: the columns,
+    integer columns and the integer cells of per-event arrays exactly,
+    floats within ATOL/RTOL (NaN where NaN). Returns the largest float
+    |diff|."""
+    import pandas as pd
+
+    got = pd.read_csv(path)
+    check(list(got.columns) == list(ref.columns) and len(got) == len(ref),
+          f"{tag}: columns {list(got.columns)} x {len(got)} rows")
+    worst = 0.0
+    for col in ref.columns:
+        a = ref[col]
+        if a.dtype == object:  # per-event arrays, written as numpy's text
+            x = np.concatenate([np.asarray(c).ravel() for c in a])
+            y = np.concatenate([np.fromstring(c.strip("[]"), sep=" ") for c in got[col]])
+            check(x.shape == y.shape, f"{tag}.{col}: cell lengths differ")
+        else:
+            x, y = a.to_numpy(), got[col].to_numpy()
+        if np.issubdtype(x.dtype, np.floating):
+            check(bool(np.isclose(y, x, atol=ATOL, rtol=RTOL, equal_nan=True).all()),
+                  f"{tag}.{col}: values outside atol {ATOL} / rtol {RTOL}")
+            d = np.abs(y - x.astype(np.float64))
+            if np.isfinite(d).any():
+                worst = max(worst, float(np.nanmax(d)))
+        else:
+            check(np.array_equal(y, x), f"{tag}.{col}: integers differ")
+    return worst
+
+
+def surface_phase(dev, smi: str, kernels: dict, daq: str, source: str,
+                  cpu_source: str) -> dict:
+    """Slice 12, the surface a user starts from, at the ingest route's width
+    (``source``: N_INGEST waveforms of VX2730 files, linked under fresh run
+    names). (1) ``PipelineServer`` on a thread over ingest_context's
+    Context on ``dev`` (the default profile), driven through the socket
+    with ``request``: ping; ``get_data(INGEST_REQUEST)`` cold and then warm
+    on 2 fresh runs (K2 and K3 once each, nothing else); the same run
+    again (a cache hit: no launch, no compute, no upload);
+    ``get_data_batched`` over SURFACE_RUNS fresh runs (K3 once, K2 once a
+    run); stats, flush and shutdown; each request's latency, the server's
+    ``seconds``, rows and launches; the memory allocated after each request
+    flat. (2) ``python -m waveformanalysis_tpu_torch.server`` as its own
+    process, with no device flag (on the card), over a second storage: one
+    ``get_data`` of a run linked to ``cpu_source`` (N_INGEST_CPU), flush,
+    shutdown, exit 0, the kernel libraries loaded from build/kernels and
+    none rebuilt; a Context on ``dev`` over that storage then loads every
+    persisted table of the request with no compute and no launch, equal to
+    the port's CPU Context's (compare_ingest). (3) ``cli.main`` with
+    ``--target df_paired --output <csv>`` and no device flag on a fresh
+    run, timed: df_paired's plan (st_waveforms, basic_features, df,
+    df_events) launches no K2/K3, and its peak device memory holds the
+    waves; the CSV's rows = the server's df_paired of the same files. (4) ``cli_cache.main`` over the
+    in-process server's storage: ``info --json`` and ``list --json`` (the
+    entries per data name), ``diagnose --json`` healthy, ``clean --all
+    --dry-run`` deleting nothing. Returns the launch counts of the server's
+    cold get_data, its batched request and the CLI."""
+    import contextlib
+    import io
+    import shutil
+
+    from waveformanalysis_tpu_torch import cli, cli_cache
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.server import PipelineServer, request, wait_ready
+
+    card = on_card(dev)
+    device_flag = [] if card else ["--device", dev.type]  # the card is the default
+    # ingest_context's config as --config-json carries it: s1_s2's width
+    # ranges are tuples, which JSON cannot carry (the option refuses a
+    # list), so they keep their defaults there
+    run_config = {"n_channels": 2, "channel_metadata": {"defaults": {"polarity": "positive"}},
+                  "hit": FILTER_ROUTES["A"][0]["hit"]}
+
+    def held() -> int:
+        if card:
+            torch.cuda.synchronize(dev)
+            return torch.cuda.memory_allocated(dev)
+        return 0
+
+    def reset() -> None:
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def want(k2: int, k3: int) -> dict:
+        return {k: {"peaks_scan": k2, "hits_scan": k3}.get(k, 0) for k in kernels}
+
+    def computed(ctx) -> list:
+        return sorted(k for k in ctx.profiler.stats() if k.startswith("plugin.")
+                      or k.startswith("fusion."))
+
+    out = {}
+    sock_dir = short_tmpdir()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # (1) the server in this process, on a thread
+            ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/srv", dev.type)
+            sock = f"{sock_dir}/srv.sock"
+            server = PipelineServer(ctx, sock)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            check(wait_ready(sock, timeout=60.0), "the in-process server did not answer ping")
+            runs = [link_run(daq, source, f"srv{i}") for i in range(3 + SURFACE_RUNS)]
+            plan = [("ping", {"op": "ping"}, None),
+                    ("get_data cold", {"op": "get_data", "run_id": runs[0],
+                                       "names": INGEST_REQUEST}, want(1, 1)),
+                    ("get_data warm 1", {"op": "get_data", "run_id": runs[1],
+                                         "names": INGEST_REQUEST}, want(1, 1)),
+                    ("get_data warm 2", {"op": "get_data", "run_id": runs[2],
+                                         "names": INGEST_REQUEST}, want(1, 1)),
+                    ("get_data hit", {"op": "get_data", "run_id": runs[2],
+                                      "names": INGEST_REQUEST}, want(0, 0)),
+                    ("get_data_batched", {"op": "get_data_batched", "run_ids": runs[3:],
+                                          "names": INGEST_REQUEST},
+                     want(SURFACE_RUNS, 1)),
+                    ("stats", {"op": "stats"}, None), ("flush", {"op": "flush"}, None)]
+            lines, memory, rec = [], [], {}
+            for tag, req, expect in plan:
+                reset()
+                ctx.profiler.reset()
+                t0 = time.perf_counter()
+                resp = request(sock, req)
+                rt = time.perf_counter() - t0
+                got = counts()
+                check(resp.get("ok") is True, f"server {tag}: {resp}")
+                rows = None
+                if expect is not None:
+                    memory.append(held())
+                    if card:
+                        check(got == expect, f"server {tag}: launches {got}, expected {expect}")
+                    res = resp["results"]
+                    if req["op"] == "get_data_batched":
+                        rows = {r: {n: d["rows"] for n, d in res[r].items()} for r in res}
+                        keys = {(r, n): d["key"] for r in res for n, d in res[r].items()}
+                    else:
+                        rows = {n: d["rows"] for n, d in res.items()}
+                        keys = {(req["run_id"], n): d["key"] for n, d in res.items()}
+                    check(all(ctx.key_for(r, n) == k for (r, n), k in keys.items()),
+                          f"server {tag}: a key differs from key_for")
+                    if tag == "get_data hit":
+                        check(computed(ctx) == [], f"server {tag}: computed {computed(ctx)}")
+                        check(rows == rec["get_data warm 2"]["rows"], f"server {tag}: rows")
+                    elif tag == "get_data cold":
+                        out["server_get_data"] = got
+                    elif tag == "get_data_batched":
+                        out["server_batched"] = got
+                rec[tag] = {"ms": rt * 1e3, "server_ms": resp.get("seconds", 0.0) * 1e3,
+                            "rows": rows}
+                lines.append(f"{tag}: {rt * 1e3:.1f} ms (server {rec[tag]['server_ms']:.1f})"
+                             + (f", launches {nonzero(got)}, rows {rows}" if expect else ""))
+            df_paired = ctx.get_data(runs[0], "df_paired")
+            t0 = time.perf_counter()
+            bye = request(sock, {"op": "shutdown"})
+            t_bye = time.perf_counter() - t0
+            thread.join(timeout=120.0)
+            check(bye.get("bye") is True and not thread.is_alive(),
+                  "the in-process server did not shut down")
+            check(max(memory) - min(memory) <= 16 << 20, f"server: memory allocated after "
+                  f"each request {memory} B is not flat")
+            warm = statistics.median(rec[f"get_data warm {i}"]["ms"] for i in (1, 2))
+            overhead = [rec[t]["ms"] - rec[t]["server_ms"] for t in rec if t.startswith("get")]
+            n = len(ctx.get_data(runs[0], "st_waveforms"))
+            print(f"main path 12 server in-process {n}x{WAVE_LEN} ({smi}): "
+                  + "; ".join(lines) + f"; shutdown {t_bye * 1e3:.1f} ms; get_data warm median "
+                  f"{warm:.1f} ms = {n / warm * 1e3:.0f} waveforms/s; protocol overhead "
+                  f"(round trip - server seconds) {[round(x, 2) for x in overhead]} ms; memory "
+                  f"allocated after each request {memory} B", flush=True)
+            out["server"] = rec
+
+            # (2) the server as its own process, on the card by default
+            store = f"{tmp}/proc"
+            sock2 = f"{sock_dir}/proc.sock"
+            built = {p.name: p.stat().st_mtime_ns for p in (ROOT / "build" / "kernels").glob("*")}
+            cmd = [sys.executable, "-m", "waveformanalysis_tpu_torch.server", "--socket", sock2,
+                   "--storage-dir", store, "--data-root", daq, "--config-json",
+                   json.dumps(run_config), *device_flag]
+            run = link_run(daq, cpu_source, "srvcmp")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            try:
+                ready = wait_ready(sock2, timeout=300.0)
+                t_ready = time.perf_counter() - t0
+                if not ready:
+                    proc.kill()
+                    fail(f"the server process did not answer ping in 300 s: "
+                         f"{proc.communicate(timeout=60)[1][-3000:]}")
+                t0 = time.perf_counter()
+                resp = request(sock2, {"op": "get_data", "run_id": run, "names": INGEST_REQUEST})
+                t_get = time.perf_counter() - t0
+                check(resp.get("ok") is True, f"server process get_data: {resp}")
+                check(request(sock2, {"op": "flush"}).get("ok") is True, "server process flush")
+                check(request(sock2, {"op": "shutdown"}).get("bye") is True,
+                      "server process shutdown")
+                rc = proc.wait(timeout=120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            stdout, stderr = proc.communicate()
+            check(rc == 0, f"the server process exited {rc}: {stderr[-3000:]}")
+            check("listening on" in stdout, f"the server process said {stdout!r}")
+            after = {p.name: p.stat().st_mtime_ns for p in (ROOT / "build" / "kernels").glob("*")}
+            check(after == built, "the server process rebuilt a kernel library: "
+                  f"{sorted(set(after.items()) ^ set(built.items()))}")
+            config = dict(run_config, data_root=daq, daq_adapter="vx2730", show_progress=False)
+            loader = Context(storage_dir=store, config=dict(config, device=dev.type))
+            loader.register(*get_profile("cuda"))
+            persisted = [n for n in INGEST_COMPARED if n != "filtered_waveforms"]
+            check(all(resp["results"][n]["key"] == loader.key_for(run, n) for n in INGEST_REQUEST),
+                  "the server process's keys differ from key_for")
+            reset()
+            for name in persisted:
+                loader.get_data(run, name)
+            check(computed(loader) == [] and all(v == 0 for v in counts().values()),
+                  f"loading the served tables computed {computed(loader)}, launched {counts()}")
+            cpu = Context(storage_dir=f"{tmp}/proc_cpu", config=dict(config, device="cpu"))
+            cpu.register(*get_profile("cuda"))
+            cpu.get_data(run, INGEST_REQUEST)
+            err, where = compare_ingest(cpu, loader, run, names=persisted)
+            print(f"main path 12 server process (python -m waveformanalysis_tpu_torch.server, "
+                  f"no device flag; {smi}): ready {t_ready:.2f} s after launch; get_data of "
+                  f"{len(loader.get_data(run, 'st_waveforms'))}x{WAVE_LEN} {t_get * 1e3:.1f} ms "
+                  f"(server "
+                  f"{resp['seconds'] * 1e3:.1f}), rows "
+                  f"{ {n: d['rows'] for n, d in resp['results'].items()} }; exit 0, no kernel "
+                  f"rebuilt; a second Context loaded {persisted} with no compute and no launch, "
+                  f"= the CPU Context's (max |f32 diff| {err:.3g}, {where})", flush=True)
+            out["process"] = {"ready_s": t_ready, "get_data_ms": t_get * 1e3,
+                              "server_ms": resp["seconds"] * 1e3}
+            for c in (loader, cpu):
+                c.flush_saves()
+            del loader, cpu
+
+            # (3) waveform-process: df_paired of a fresh full-width run to CSV
+            run = link_run(daq, source, "clirun")
+            csv = Path(tmp, "out", "df_paired.csv")
+            argv = ["--run-name", run, "--data-root", daq, "--storage-dir", f"{tmp}/cli",
+                    "--n-channels", "2", "--config-json", json.dumps(run_config), "--target",
+                    "df_paired", "--output", str(csv), "--quiet", *device_flag]
+            reset()
+            said = io.StringIO()
+            if card:
+                torch.cuda.synchronize(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+            base = held()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(argv)
+            t_cli = time.perf_counter() - t0
+            got = counts()
+            peak = torch.cuda.max_memory_allocated(dev) - base if card else 0
+            check(rc == 0 and said.getvalue().startswith(f"wrote {len(df_paired)} rows"),
+                  f"waveform-process exited {rc}: {said.getvalue()!r}")
+            if card:  # df_paired's plan holds basic_features, on the card, and no K2/K3
+                check(got == want(0, 0) and peak >= n * WAVE_LEN * 2,
+                      f"waveform-process: launches {got}, peak {peak} B above its start: "
+                      f"expected no kernel and the waves on the card")
+            err = csv_matches(df_paired, csv, "waveform-process df_paired")
+            # the CSV formatting alone, on a slice of the same frame (the
+            # per-event array cells are formatted one by one on the host)
+            part = df_paired.iloc[:N_INGEST_CPU]
+            t_csv = timeit_s(lambda: part.to_csv(Path(tmp, "part.csv"), index=False))
+            print(f"main path 12 waveform-process (cli.main, no device flag; {smi}): "
+                  f"--target df_paired --output csv on {n}x{WAVE_LEN} in {t_cli:.2f} s, "
+                  f"launches {nonzero(got)} (df_paired's plan runs no K2/K3), peak device "
+                  f"memory {peak} B above its start; {len(df_paired)} rows = the server's "
+                  f"df_paired of the same files (max |f32 diff| {err:.3g}; "
+                  f"{csv.stat().st_size} bytes); to_csv of its first {len(part)} rows alone "
+                  f"{t_csv * 1e3:.1f} ms", flush=True)
+            out["cli"] = got
+            out["cli_s"] = t_cli
+
+            # (4) waveform-cache over the in-process server's storage
+            def cache(*args) -> tuple:
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    rc = cli_cache.main(["--storage-dir", f"{tmp}/srv", *args])
+                return rc, text.getvalue()
+
+            rc, info = cache("info", "--json")
+            info = json.loads(info)
+            rc_list, entries = cache("list", "--json")
+            per_name: dict = {}
+            for e in json.loads(entries):
+                name = e["key"][len(e["run_id"]) + 1:]
+                hint = name.endswith("-caphint")  # a capacity hint: metadata only
+                name = name.rsplit("-", 2 if hint else 1)[0] + (" hints" if hint else "")
+                per_name[name] = per_name.get(name, 0) + 1
+            check(rc == rc_list == 0 and info["n_entries"] == sum(per_name.values()) > 0,
+                  f"waveform-cache info/list: {info}")
+            rc, diag = cache("diagnose", "--json")
+            diag = json.loads(diag)
+            check(rc == 0 and diag["is_healthy"] and not diag["corrupt"]
+                  and not diag["orphan_payloads"] and not diag["orphan_metadata"],
+                  f"waveform-cache diagnose: {diag}")
+            rc, dry = cache("clean", "--all", "--dry-run")
+            check(rc == 0 and json.loads(cache("info", "--json")[1])["n_entries"]
+                  == info["n_entries"], "waveform-cache clean --all --dry-run deleted entries")
+            print(f"main path 12 waveform-cache over the server's storage: info "
+                  f"{info['n_entries']} entries, {info['total_mb']:.1f} MB, per data name "
+                  f"{dict(sorted(per_name.items()))}; diagnose healthy ({diag['healthy']} "
+                  f"checksums ok, no orphan, no corruption); clean --all --dry-run: "
+                  f"{dry.splitlines()[0]}, nothing deleted", flush=True)
+            del ctx, df_paired
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+    return out
 
 
 def examples_phase() -> None:
@@ -1778,7 +2115,7 @@ def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> 
     for the group, K2 once a run (``hit`` reads the SG-filtered waves, a
     standalone member as in the per-run route), nothing else; every table
     of the request equals per-run ``get_data`` on a second Context bit for
-    bit. Then per-run and batched again, in turns (P B B P); then
+    bit. Then per-run and batched again, one of each (P B); then
     ``BatchProcessor(ctx, executor_type="device", on_error="raise")``
     computes df_events on fresh names through compute_many, and the thread
     executor with 2 workers counts every K2 launch of s1_s2 on two runs at
@@ -1829,7 +2166,7 @@ def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> 
               f"Context bit for bit; cold {cold:.3f} s (the per-run calls cold "
               f"{cold_per_run:.3f} s)", flush=True)
 
-        order = ("P", "B", "B", "P")
+        order = ("P", "B")  # one of each after the cold pair (depth cut for phase 5m)
 
         def call(i, kind):
             rids = names(f"t{i}")
@@ -2496,6 +2833,9 @@ def main() -> None:
         stream_launches = streaming_phase(dev, smi, kernels, daq, "ingest3", "cmp")
         torch.cuda.empty_cache()
         stamp("phase 5l (streaming)")
+        surface = surface_phase(dev, smi, kernels, daq, "ingest3", "cmp")
+        torch.cuda.empty_cache()
+        stamp("phase 5m (surface)")
     v1725_phase(dev, smi, kernels, N_V1725)
     primitives_phase(dev, smi, N_PRIMITIVES)
     stamp("phases 5h-5i (V1725, primitives)")
@@ -2944,6 +3284,10 @@ def main() -> None:
                                  "files": batched_file_launches[name]},
             # slice 11's streams over the ingest files: once per chunk
             "stream_launches": {s: got[name] for s, got in stream_launches.items()},
+            # slice 12's surface: the server's cold get_data and batched
+            # request (2 runs), and waveform-process
+            "surface_launches": {s: surface[s][name]
+                                 for s in ("server_get_data", "server_batched", "cli")},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -245,14 +245,12 @@ def test_fused_chain_demo_on_cpu():
 # JAX facade names whose modules the port does not have yet (ROADMAP
 # Queue 1: multi-device, surface)
 NOT_YET_PORTED = (
-    "DataExporter", "DependencyAnalyzer",
     "wrap_strax_plugin", "StraxContextAdapter", "PluginLoader", "enable_hot_reload",
-    "PluginHotReloader", "CacheManager", "PipelineServer", "make_sharded_chain",
-    "make_sharded_chain_pallas", "make_sharded_chain_scan", "DAQRun", "DAQAnalyzer",
+    "PluginHotReloader", "make_sharded_chain",
+    "make_sharded_chain_pallas", "make_sharded_chain_scan",
     "parse_and_stack_files", "WaveformPreviewer", "preview_waveforms",
     "plot_records_waveforms", "plot_lineage_labview", "plot_lineage_plotly",
-    "LineageGraphModel", "build_lineage_graph", "plot_waveforms",
-    "create_interactive_browser", "LineageStyle",
+    "plot_waveforms", "create_interactive_browser", "LineageStyle",
 )
 # JAX facade name -> the port's name for it (kernel-named chain entries and
 # the TPU-named default profile)

@@ -63,6 +63,20 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.plugins.device_stream",
     "waveformanalysis_tpu_torch.plugins.builtin.signal_peaks",
     "waveformanalysis_tpu_torch.examples.streaming_demo",
+    "waveformanalysis_tpu_torch.storage.cache_ops",
+    "waveformanalysis_tpu_torch.utils.cache_tools",
+    "waveformanalysis_tpu_torch.plugins.builtin.cache_analysis",
+    "waveformanalysis_tpu_torch.storage.function_cache",
+    "waveformanalysis_tpu_torch.data.dependency_analysis",
+    "waveformanalysis_tpu_torch.data.export",
+    "waveformanalysis_tpu_torch.foundation.model",
+    "waveformanalysis_tpu_torch.utils.daq",
+    "waveformanalysis_tpu_torch.cli",
+    "waveformanalysis_tpu_torch.cli_cache",
+    "waveformanalysis_tpu_torch.utils.plugin_doc_generator",
+    "waveformanalysis_tpu_torch.utils.doc_coverage",
+    "waveformanalysis_tpu_torch.utils.cli_docs",
+    "waveformanalysis_tpu_torch.server",
 )
 
 
@@ -89,7 +103,9 @@ def test_port_imports_without_jax():
     assert {"ChainConfig", "make_chain_tile", "chain_tile_cuda", "Context", "get_profile",
             "cuda_default", "get_adapter", "group_multi_channel_hits", "RecordsView",
             "TimeRangeQueryEngine", "BatchProcessor", "ExecutorManager",
-            "parallel_map"} <= set(result["names"])
+            "parallel_map", "PipelineServer", "DataExporter", "DependencyAnalyzer",
+            "CacheManager", "DAQRun", "DAQAnalyzer", "LineageGraphModel",
+            "build_lineage_graph"} <= set(result["names"])
     assert result["leaked"] == []
 
 

@@ -23,9 +23,9 @@ JAX package                     port
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
-Names whose modules are not ported yet (the sharded chains, DAQ and
-plotting utilities, ...) are absent: asking for one raises
-``AttributeError``.
+Names whose modules are not ported yet (the sharded chains, the plugin
+loaders, previews and plotting utilities, ...) are absent: asking for one
+raises ``AttributeError``.
 
 Ported so far:
 
@@ -63,7 +63,16 @@ Ported so far:
   (``get_stream(run, "hit", executor_type="device")`` launches K2 once per
   chunk, ``hit_threshold`` K3) and ``signal_peaks_stream`` in
   ``get_profile("streaming")``; the demo
-  ``python -m waveformanalysis_tpu_torch.examples.streaming_demo``.
+  ``python -m waveformanalysis_tpu_torch.examples.streaming_demo``;
+- slice 12, the surface users start from: ``python -m
+  waveformanalysis_tpu_torch.cli`` (``waveform-process``), ``.cli_cache``
+  (``waveform-cache``), ``.utils.cli_docs`` (``waveform-docs``) and
+  ``.server`` (``waveform-serve``, ``PipelineServer``: one warm Context
+  answering ``get_data`` / ``get_data_batched`` over a unix socket), with
+  the cache suite (``storage/cache_ops.py``, ``CacheManager``), the export
+  (``DataExporter``), the dependency analysis (``DependencyAnalyzer``), the
+  lineage graph (``build_lineage_graph``) and the DAQ inspection
+  (``DAQRun``, ``DAQAnalyzer``).
 """
 
 from __future__ import annotations
@@ -138,6 +147,15 @@ _LAZY_API = {
     "parallel_map": (_P + "execution.manager", "parallel_map"),
     "parallel_apply": (_P + "execution.manager", "parallel_apply"),
     "get_timeout_manager": (_P + "execution.timeout", "get_timeout_manager"),
+    # the surface: server, export, analysis, DAQ inspection, lineage
+    "PipelineServer": (_P + "server", "PipelineServer"),
+    "DataExporter": (_P + "data.export", "DataExporter"),
+    "DependencyAnalyzer": (_P + "data.dependency_analysis", "DependencyAnalyzer"),
+    "CacheManager": (_P + "storage.function_cache", "CacheManager"),
+    "DAQRun": (_P + "utils.daq", "DAQRun"),
+    "DAQAnalyzer": (_P + "utils.daq", "DAQAnalyzer"),
+    "LineageGraphModel": (_P + "foundation.model", "LineageGraphModel"),
+    "build_lineage_graph": (_P + "foundation.model", "build_lineage_graph"),
     # foundation
     "Profiler": (_P + "foundation.profiler", "Profiler"),
     "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),

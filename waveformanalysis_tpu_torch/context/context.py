@@ -21,9 +21,7 @@ round-trips them through the packed per-field layout, and a plugin's
 caches like plugin version bumps do.
 
 Not ported yet (ROADMAP.md): ``attach_mesh`` (raises; with it the sharded
-path of ``get_data_batched``), and the introspection helpers whose modules are not in the port
-(``analyze_dependencies``, ``analyze_cache``, ``diagnose_cache``,
-``plot_lineage``).
+path of ``get_data_batched``) and ``plot_lineage``.
 """
 
 from __future__ import annotations
@@ -768,6 +766,30 @@ class Context:
                 for key, d in config_deltas.get(name, {}).items():
                     print(f"    {key} = {d['value']!r} ({d['source']})")
         return preview
+
+    def analyze_dependencies(self, target_name: str,
+                             include_performance: bool = True,
+                             run_id: Optional[str] = None):
+        """Critical-path / parallel-group analysis (reference: context.py:1290)."""
+        from waveformanalysis_tpu_torch.data.dependency_analysis import DependencyAnalyzer
+
+        return DependencyAnalyzer(self).analyze(
+            target_name, include_performance=include_performance, run_id=run_id
+        )
+
+    def analyze_cache(self, run_id: Optional[str] = None):
+        """Cache entry scan + summary (reference: context.py:2412)."""
+        from waveformanalysis_tpu_torch.storage.cache_ops import CacheAnalyzer
+
+        analyzer = CacheAnalyzer(self.storage)
+        return {"entries": [e.to_dict() for e in analyzer.scan(run_id)],
+                "summary": analyzer.summary(run_id)}
+
+    def diagnose_cache(self, run_id: Optional[str] = None):
+        """Cache health report (reference: context.py:2460)."""
+        from waveformanalysis_tpu_torch.storage.cache_ops import CacheDiagnostics
+
+        return CacheDiagnostics(self.storage).diagnose(run_id)
 
     def cache_stats(self):
         """Runtime hit/miss statistics (reference: context.py:2520)."""

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from waveformanalysis_tpu_torch.device import to_device
+from waveformanalysis_tpu_torch.storage.cache_ops import HINT_SUFFIX
 from waveformanalysis_tpu_torch.ops.compact import (
     compact_slots,
     decode_slot_matrix,
@@ -527,7 +528,7 @@ class WaveChainFusion:
     def _hint_key(ctx: Any, run_id: str, member: str) -> str:
         # lineage-hashed like the data caches: a config/version change that
         # could alter candidate counts changes the key, orphaning the hint
-        return ctx.cache_domain.key_for(run_id, member) + "-caphint"
+        return ctx.cache_domain.key_for(run_id, member) + HINT_SUFFIX
 
     def _get_hint(self, ctx: Any, run_id: str, member: str, n: int):
         """Observed max per-event candidate count, or None. ``n`` guards
