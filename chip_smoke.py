@@ -72,7 +72,16 @@ version on the card, and drives the port's main paths:
   the card, whose persisted tables a second Context loads with no compute,
   equal to the port's CPU Context's; ``waveform-process`` writing
   df_paired to CSV, equal to the card's table; ``waveform-cache`` info,
-  diagnose and a dry-run clean over the server's storage.
+  diagnose and a dry-run clean over the server's storage;
+- slice 13, the user utilities on slice 8's files: ``parse_and_stack_files``
+  (= the reader, file by file), ``WaveformPreviewer``, the event filters on
+  the card's df_events (bit for bit the CPU Context's on a 16,384 run),
+  ``StraxContextAdapter.get_array(run, "hit")`` and
+  ``create_interactive_browser`` (K2 once each), the records view, the
+  lineage plot, a user plugin found by ``PluginLoader`` and hot-reloaded
+  (K2 again after the edit), with the memory held flat; the renders run
+  where matplotlib is installed; then the port's fifteen examples, eight
+  processes at a time.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -280,6 +289,7 @@ STREAM_NAMES = ("basic_features", "hit", "hit_threshold", "waveform_width_integr
 STREAM_KERNEL = {"hit": "peaks_scan", "hit_threshold": "hits_scan",
                  "signal_peaks_stream": "peaks_scan"}
 STREAM_CHUNK = 50_000  # StreamingConfig's default chunk_size
+STREAM_WARM_RUNS = 1  # after the cold run of each stream (cut from 2 for the script's time)
 STREAM_CPU_CHUNK = 4_096  # the N_INGEST_CPU run against the CPU Context: 4 chunks
 SIGNAL_PEAKS_CHUNK = 4_096  # signal_peaks_stream's default chunk
 
@@ -1360,7 +1370,7 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
     (``source``, N_INGEST waveforms, linked under a fresh run name) by a
     Context with ``get_profile("streaming")``. For each of STREAM_NAMES,
     ``get_stream(run, name, executor_type="device")`` at the default
-    chunk_size, cold and then 2 warm runs: K2 (hit) and K3 (hit_threshold)
+    chunk_size, cold and then STREAM_WARM_RUNS warm runs: K2 (hit) and K3 (hit_threshold)
     launch once per chunk and nothing else launches; every chunk holds host
     columns; the merged stream = the static table bit for bit (hit and
     hit_threshold with a left halo of one wave); the device executor = the
@@ -1369,7 +1379,7 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
     ``get_data(run, "signal_peaks_stream")`` at its default chunk (64
     launches of K2) persists its chunks (the plugin set to
     save_when="always"), a second get_data reads them back from the cache
-    and equals the first, and 2 warm runs with its cache cleared; the
+    and equals the first, and STREAM_WARM_RUNS warm runs with its cache cleared; the
     memory allocated after each stream stays flat; one warm hit stream
     under torch.profiler. Last, the ``cpu_source`` run (N_INGEST_CPU) on the
     card against the port's CPU Context, chunk for chunk at 4,096 rows a
@@ -1444,7 +1454,7 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
         for name in STREAM_NAMES:
             kw = halo if name in ("hit", "hit_threshold") else {}
             walls, phases = [], []
-            for i in range(3):  # cold, then 2 warm runs
+            for i in range(1 + STREAM_WARM_RUNS):  # cold, then the warm runs
                 ctx.profiler.reset()
                 chunks, wall = timed(lambda: sc.get_stream(run, name, executor_type="device",
                                                            **kw))
@@ -1498,7 +1508,7 @@ def streaming_phase(dev, smi: str, kernels: dict, daq: str, source: str,
         plugin.save_when = "always"
         sp_chunks = -(-n // SIGNAL_PEAKS_CHUNK)
         walls = []
-        for i in range(3):
+        for i in range(1 + STREAM_WARM_RUNS):
             if i:
                 ctx.clear_cache_for(run, "signal_peaks_stream")
             chunks, wall = timed(lambda: ctx.get_data(run, "signal_peaks_stream"))
@@ -1888,18 +1898,329 @@ def surface_phase(dev, smi: str, kernels: dict, daq: str, source: str,
     return out
 
 
+# the user plugin of phase 5n: a peak finder in the shape of hit, found on
+# disk by PluginLoader and edited while the Context runs
+UTILITY_PLUGIN = '''
+from waveformanalysis_tpu_torch.plugins.base import Option
+from waveformanalysis_tpu_torch.plugins.builtin.peak_finding import HitFinderPlugin
+
+
+class UserHit(HitFinderPlugin):
+    """A user's peak finder: hit's kernels with its own height threshold."""
+
+    provides = "user_hit"
+    version = "{version}"
+    options = dict(HitFinderPlugin.options,
+                   height=Option(default={height}, type=float, help="Minimum peak height"))
+'''
+
+
+def utilities_phase(dev, smi: str, kernels: dict, daq: str, source: str,
+                    cpu_source: str, n: int) -> dict:
+    """Slice 13, the user utilities, on the ingest phase's VX2730 files
+    (``source``: ``n`` waveforms, 2 channels x INGEST_FILES files;
+    ``cpu_source``: the N_INGEST_CPU run), each step timed with the launch
+    counts reset before it. (1) ``parse_and_stack_files`` over the run's
+    files (a thread a file): each channel's stack = the port's reader file
+    by file, ``count_rows`` sums to ``n``, the parse rate. (2)
+    ``WaveformPreviewer``: ``load_events`` and ``load_by_timestamp`` = the
+    parsed rows, ``preview_features`` = NumPy's, ``summary``;
+    ``preview_waveforms`` where matplotlib is installed. (3) df_events of a
+    fresh run linked to ``source`` on a card Context and the four event
+    filters on it; the same filters on the card's and the CPU Context's
+    df_events of a run linked to ``cpu_source``, bit for bit. (4) On a
+    fresh card Context: ``StraxContextAdapter(ctx).get_array(run, "hit")``
+    (K2 once; = the Context's table), ``get_df``, ``search_field``;
+    ``create_interactive_browser`` on a second fresh run (K2 once); that
+    run's records and pool through ``_resolve_records_view`` (a record's
+    wave is a parsed row); ``plot_records_waveforms``, ``browse(0)`` and
+    ``ctx.plot_lineage("df_paired")`` saved as PNGs where matplotlib is
+    installed, else plot_lineage's graph, layout and wire routes. (5)
+    ``PluginLoader`` finds a user plugin (``user_hit``, a hit subclass, so
+    the card runs K2 for it) in a temporary directory; after an edit of its
+    file (a new version and height) ``PluginHotReloader`` re-registers it
+    and invalidates its cache, and the next ``get_data`` launches K2 again
+    and keeps fewer peaks. The memory allocated after the phase = before
+    it, within 16 MB. Returns the launch counts of the df_events request,
+    the strax adapter, the browser and the reloaded plugin."""
+    import importlib.util
+
+    import waveformanalysis_tpu_torch as wa
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.utils import event_filters as EF
+    from waveformanalysis_tpu_torch.utils import io as uio
+    from waveformanalysis_tpu_torch.utils import visualization as viz
+    from waveformanalysis_tpu_torch.utils.preview import _resolve_records_view
+
+    card = on_card(dev)
+    mpl = importlib.util.find_spec("matplotlib") is not None
+    if mpl:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+    def held() -> int:
+        if card:
+            torch.cuda.synchronize(dev)
+            return torch.cuda.memory_allocated(dev)
+        return 0
+
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in kernels.items()}
+
+    def want(k2: int) -> dict:
+        return {k: k2 if k == "peaks_scan" else 0 for k in kernels}
+
+    walls, launches, pngs = {}, {}, {}
+
+    def step(tag: str, fn, expect=None):
+        """fn() timed, with every launch count set to 0 before it."""
+        for kernel in kernels.values():
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        if card:
+            torch.cuda.synchronize(dev)
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = counts()
+        if expect is not None and card:
+            check(launches[tag] == expect,
+                  f"utilities {tag}: launches {launches[tag]}, expected {expect}")
+        return out
+
+    def png(name: str, draw) -> None:
+        path = Path(tmp, f"{name}.png")
+        step(name, lambda: draw(path), want(0))
+        pngs[name] = path.stat().st_size if path.exists() else 0
+        check(pngs[name] > 0, f"utilities {name}: {path.name} is empty")
+        plt.close("all")
+
+    t_phase = time.perf_counter()
+    base = held()
+    adapter = wa.get_adapter("vx2730")
+    by_channel = adapter.scan_run(daq, source)
+    files = [by_channel[ch] for ch in sorted(by_channel)]
+    csv_bytes = sum(Path(f).stat().st_size for chan in files for f in chan)
+    n_threads = min(sum(len(chan) for chan in files), 16)  # parse_and_stack_files' pool
+    with tempfile.TemporaryDirectory() as tmp:
+        # (1) the flat-pool parse
+        stacked = step("parse_and_stack_files", lambda: uio.parse_and_stack_files(files),
+                       want(0))
+        reader = adapter.format_reader
+        for ch, chan in enumerate(files):
+            ref = np.vstack([reader.read_file(f, is_first_file=(i == 0))
+                             for i, f in enumerate(chan)])
+            check(stacked[ch] is not None and stacked[ch].dtype == ref.dtype
+                  and np.array_equal(stacked[ch], ref),
+                  f"parse_and_stack_files: channel {ch} != the reader's files")
+        rows = uio.count_rows(files)
+        check(sum(rows) == n, f"count_rows {rows} does not sum to {n}")
+        samples = [adapter.extract_and_convert(a)["samples"] for a in stacked]
+        del stacked, ref
+        rate = csv_bytes / walls["parse_and_stack_files"] / 1e6
+
+        # (2) the previewer, straight from the files
+        pv = wa.WaveformPreviewer(daq, source)
+        start, k = min(1000, n // 4), 64
+        ev = step("load_events", lambda: pv.load_events(0, start=start, n_events=k), want(0))
+        check(np.array_equal(np.asarray(ev["wave"]),
+                             samples[0][start:start + k].astype(np.float32)),
+              "load_events != the parsed rows")
+        lo, hi = 100 * INGEST_DT_PS, (100 + k) * INGEST_DT_PS
+        win = step("load_by_timestamp", lambda: pv.load_by_timestamp(1, lo, hi), want(0))
+        check(np.array_equal(np.asarray(win["wave"]),
+                             samples[1][100:100 + k].astype(np.float32)),
+              "load_by_timestamp != the parsed rows")
+        feats = step("preview_features", lambda: pv.preview_features(ev), want(0))
+        sig = np.asarray(ev["baseline"])[:, None] - np.asarray(ev["wave"], dtype=np.float64)
+        check(np.array_equal(feats["height"], sig.max(axis=1))
+              and np.array_equal(feats["area"], sig.sum(axis=1)), "preview_features != NumPy's")
+        summary = pv.summary(ev)
+        check(summary.startswith(f"{k} events"), f"summary: {summary!r}")
+        if mpl:
+            png("preview_waveforms", lambda path: wa.preview_waveforms(
+                source, 0, event_range=(start, start + 16), data_root=daq,
+                save_path=str(path)))
+        print(f"main path 13 parse and preview ({smi}; matplotlib: "
+              f"{'present' if mpl else 'absent'}): parse_and_stack_files over {n}x{WAVE_LEN} "
+              f"in {sum(len(c) for c in files)} files ({csv_bytes} B) "
+              f"{walls['parse_and_stack_files'] * 1e3:.1f} ms with {n_threads} threads = "
+              f"{rate:.0f} MB/s, = the reader file by file, count_rows {rows}; "
+              f"WaveformPreviewer load_events {walls['load_events'] * 1e3:.1f} ms, "
+              f"load_by_timestamp {walls['load_by_timestamp'] * 1e3:.1f} ms (= the parsed "
+              f"rows), preview_features = NumPy's; summary {summary!r}", flush=True)
+
+        # (3) the event filters on the card's df_events, then card = CPU
+        ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/card", dev.type)
+        events = step("df_events", lambda: ctx.get_data(link_run(daq, source, "util0"),
+                                                        "df_events"))
+        cut = float(np.median([np.sum(a) for a in events["areas"]]))
+        filters = {"filter_by_n_hits": lambda df: EF.filter_by_n_hits(df, min_hits=2),
+                   "filter_by_channels": lambda df: EF.filter_by_channels(df, [0, 1]),
+                   "filter_coincidence": lambda df: EF.filter_coincidence(df, 0, 1,
+                                                                          max_dt_ns=25.0),
+                   "filter_by_area": lambda df: EF.filter_by_area(df, min_total_area=cut)}
+        kept = {}
+        for name, fn in filters.items():
+            got = step(name, lambda fn=fn: fn(events), want(0))
+            check(0 < len(got) <= len(events), f"{name} kept {len(got)} of {len(events)}")
+            kept[name] = len(got)
+        n_events = len(events)
+        cmp_run = link_run(daq, cpu_source, "utilcmp")
+        cpu = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/cpu", "cpu")
+        ref_events = cpu.get_data(cmp_run, "df_events")
+        got_events = ctx.get_data(cmp_run, "df_events")
+        kept_cmp = {}
+        for name, fn in filters.items():
+            ref = fn(ref_events)
+            check(len(ref) > 0, f"{name}: nothing kept of the {cmp_run} run")
+            check_identical(ref, fn(got_events), f"utilities {name} card vs CPU")
+            kept_cmp[name] = len(ref)
+        for c in (cpu, ctx):
+            c.flush_saves()
+        print(f"main path 13 event filters ({smi}): df_events of {n}x{WAVE_LEN} on the card "
+              f"{walls['df_events'] * 1e3:.1f} ms (launches {nonzero(launches['df_events'])}), "
+              f"{n_events} events; kept "
+              + ", ".join(f"{k} {kept[k]} in {walls[k] * 1e3:.1f} ms" for k in filters)
+              + f"; on the {len(ref_events)} events of a run linked to {cpu_source!r} the "
+              f"card's rows = the CPU Context's bit for bit ({kept_cmp})", flush=True)
+        del cpu, ctx, events, ref_events, got_events, ref
+
+        # (4) the strax facade, the browser, the records view and the lineage
+        ctx = ingest_context(Context, get_profile("cuda"), daq, f"{tmp}/fresh", dev.type)
+        strax = wa.StraxContextAdapter(ctx)
+        run = link_run(daq, source, "util1")
+        arr = step("get_array", lambda: strax.get_array(run, "hit"), want(1))
+        check(isinstance(arr, np.ndarray) and len(arr) > 0
+              and np.array_equal(arr, ctx.get_data(run, "hit").to_numpy()),
+              "StraxContextAdapter.get_array(hit) != get_data(hit)")
+        frame = step("get_df", lambda: strax.get_df(run, "hit"), want(0))
+        check(len(frame) == len(arr) and "height" in frame.columns, "get_df(hit)")
+        check("hit" in strax.search_field("height"), "search_field('height')")
+        run2 = link_run(daq, source, "util2")
+        browse = step("create_interactive_browser",
+                      lambda: wa.create_interactive_browser(ctx, run2), want(1))
+        step("records", lambda: ctx.get_data(run2, ["records", "wave_pool"]))
+        rv = step("_resolve_records_view", lambda: _resolve_records_view(ctx, run2), want(0))
+        check(len(rv) == n, f"RecordsView holds {len(rv)} records, not {n}")
+        wave = rv.waves(int(np.asarray(rv.records["record_id"])[0]))
+        check(wave.size == WAVE_LEN and any(np.array_equal(wave, s[0]) for s in samples),
+              "the first record's wave is not a parsed row")
+        if mpl:
+            png("browse", lambda path: browse(0).savefig(path))
+            png("plot_records_waveforms", lambda path: wa.plot_records_waveforms(
+                ctx, run2, save_path=str(path)))
+            png("plot_lineage", lambda path: ctx.plot_lineage("df_paired").figure.savefig(path))
+            drawn = f"PNGs {pngs} B"
+        else:  # plot_lineage_labview's data path: the graph, its layout, the wires
+
+            def lineage_layout():
+                nodes, edges, info = viz.lineage_to_graph(ctx.get_lineage("df_paired"),
+                                                          "df_paired")
+                viz._attach_context_details(info, ctx)
+                style = viz.LineageStyle()
+                heights = {v: viz.estimate_node_height(v, info[v], style) for v in nodes}
+                pos = viz.scaled_positions(viz.layered_layout(nodes, edges), heights, style)
+                boxes = viz._node_boxes(pos, heights, style)
+                half = style.node_width / 2
+                return nodes, edges, [viz.route_edge((pos[s][0] + half, pos[s][1]),
+                                                     (pos[d][0] - half, pos[d][1]), boxes,
+                                                     {s, d}) for s, d in edges]
+
+            nodes, edges, wires = step("plot_lineage layout", lineage_layout, want(0))
+            check(len(nodes) > 5 and len(edges) >= len(nodes) - 1,
+                  f"df_paired's lineage graph: {len(nodes)} nodes, {len(edges)} edges")
+            drawn = (f"no render; plot_lineage's layout of df_paired: {len(nodes)} nodes, "
+                     f"{len(edges)} wires ({sum(w is not None for w in wires)} orthogonal) in "
+                     f"{walls['plot_lineage layout'] * 1e3:.1f} ms")
+        print(f"main path 13 strax facade, browser, records view, lineage ({smi}): "
+              f"StraxContextAdapter.get_array(run, 'hit') {walls['get_array'] * 1e3:.1f} ms, "
+              f"{len(arr)} rows = get_data (launches {nonzero(launches['get_array'])}), get_df "
+              f"{walls['get_df'] * 1e3:.1f} ms; create_interactive_browser on a fresh run "
+              f"{walls['create_interactive_browser'] * 1e3:.1f} ms (launches "
+              f"{nonzero(launches['create_interactive_browser'])}); records + wave_pool "
+              f"{walls['records'] * 1e3:.1f} ms, RecordsView of {len(rv)} records on the host "
+              f"{walls['_resolve_records_view'] * 1e3:.1f} ms; {drawn}", flush=True)
+
+        # (5) a user plugin found on disk, edited and hot-reloaded
+        plugin_dir = Path(tmp, "user_plugins")
+        plugin_dir.mkdir()
+        src = plugin_dir / "user_hit.py"
+        src.write_text(UTILITY_PLUGIN.format(version="1.0.0", height=80.0))
+        loader = wa.PluginLoader()
+        found = [c for c in loader.discover_directory(plugin_dir) if c.provides == "user_hit"]
+        check(len(found) == 1 and not loader.report.failures,
+              f"PluginLoader: {loader.report.summary()}")
+        ctx.register(found[0]())
+        ctx.set_config({"user_hit": {key: v for key, v in FILTER_ROUTES["A"][0]["hit"].items()
+                                     if key != "height"}})
+        reloader = wa.enable_hot_reload(ctx)
+        first = step("user_hit", lambda: ctx.get_data(run2, "user_hit"), want(1))
+        key1 = ctx.key_for(run2, "user_hit")
+        time.sleep(0.02)  # a new mtime as well as new content
+        src.write_text(UTILITY_PLUGIN.format(version="2.0.0", height=300.0))
+        reloaded = step("check_and_reload", reloader.check_and_reload, want(0))
+        check(reloaded == ["user_hit"] and ctx.get_plugin("user_hit").version == "2.0.0"
+              and ctx.key_for(run2, "user_hit") != key1,
+              f"hot reload re-registered {reloaded}")
+        second = step("user_hit reloaded", lambda: ctx.get_data(run2, "user_hit"), want(1))
+        check(0 < len(second) < len(first),
+              f"the reloaded user_hit kept {len(second)} peaks, {len(first)} before")
+        print(f"main path 13 plugin loader and hot reload ({smi}): user_hit found on disk; "
+              f"get_data {walls['user_hit'] * 1e3:.1f} ms, {len(first)} peaks (launches "
+              f"{nonzero(launches['user_hit'])}); edited (v2.0.0, height 300): "
+              f"check_and_reload {walls['check_and_reload'] * 1e3:.1f} ms re-registered "
+              f"{reloaded} and invalidated its cache; get_data "
+              f"{walls['user_hit reloaded'] * 1e3:.1f} ms, {len(second)} peaks (launches "
+              f"{nonzero(launches['user_hit reloaded'])})", flush=True)
+        ctx.flush_saves()
+        del ctx, reloader, strax, arr, frame, browse, rv, first, second, samples
+    after = held()
+    check(abs(after - base) <= 16 << 20,
+          f"utilities: memory allocated {after} B after the phase, {base} B before")
+    print(f"main path 13 user utilities: phase {time.perf_counter() - t_phase:.1f} s; memory "
+          f"allocated {base} B before, {after} B after; step walls (ms) "
+          f"{ {k: round(v * 1e3, 1) for k, v in walls.items()} }", flush=True)
+    return {"df_events": launches["df_events"], "strax_get_array": launches["get_array"],
+            "browser": launches["create_interactive_browser"],
+            "hot_reload": launches["user_hit reloaded"]}
+
+
+EXAMPLES = ("records_pipeline_example", "records_view_example", "batched_multirun_demo",
+            "streaming_demo", "s1_s2_pipeline_demo", "waveform_width_example",
+            "signal_processing_example", "dual_baseline_example", "config_management_example",
+            "list_plugin_configs_example", "progress_tracking_demo", "preview_execution_demo",
+            "doc_generator_demo", "verify_lineage_demo", "preview_quickstart")
+EXAMPLE_WORKERS = 8  # example processes at once, one a core of the card's host
+# (each starts python, torch and a CUDA context)
+
+
 def examples_phase() -> None:
-    """The port's two records examples, the batched multi-run demo and the
-    streaming demo, as a user runs them (on the card by default)."""
-    for name in ("records_pipeline_example", "records_view_example", "batched_multirun_demo",
-                 "streaming_demo"):
+    """The port's examples as a user runs them (on the card by default):
+    the records examples, the batched multi-run and streaming demos, and the
+    eleven of slice 13, EXAMPLE_WORKERS processes at a time. Each must exit
+    0 and say ``device: cuda``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def run(name: str):
+        t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", f"waveformanalysis_tpu_torch.examples.{name}"],
                               capture_output=True, text=True, timeout=600, cwd=ROOT)
+        return proc, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        done = list(pool.map(run, EXAMPLES))
+    for name, (proc, wall) in zip(EXAMPLES, done):
         check(proc.returncode == 0, f"{name} failed: {proc.stderr.strip()[-3000:]}")
         check("device: cuda" in proc.stdout, f"{name} did not run on the card")
         last = proc.stdout.strip().splitlines()[-1]
         print(f"example (python -m waveformanalysis_tpu_torch.examples.{name}): exit 0 on the "
-              f"card; {last[:80]}", flush=True)
+              f"card in {wall:.1f} s; {last[:80]}", flush=True)
+    print(f"examples: {len(EXAMPLES)} in {time.perf_counter() - t0:.1f} s, "
+          f"{EXAMPLE_WORKERS} at a time", flush=True)
 
 
 def check_identical(ref, out, tag: str) -> None:
@@ -2821,6 +3142,8 @@ def main() -> None:
     # ---- phases 5f-5i: slice 9, records ingest on the same files ----------
     # ---- phase 5k: slice 10, the batched multi-run path on the files ------
     # ---- phase 5l: slice 11, chunked streaming on the files ---------------
+    # ---- phase 5m: slice 12, the surface (server, CLIs) on the files -------
+    # ---- phase 5n: slice 13, the user utilities on the files --------------
     with tempfile.TemporaryDirectory() as files:
         daq = f"{files}/DAQ"
         ingest_launches, written = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU, daq)
@@ -2836,6 +3159,9 @@ def main() -> None:
         surface = surface_phase(dev, smi, kernels, daq, "ingest3", "cmp")
         torch.cuda.empty_cache()
         stamp("phase 5m (surface)")
+        utility_launches = utilities_phase(dev, smi, kernels, daq, "ingest3", "cmp", N_INGEST)
+        torch.cuda.empty_cache()
+        stamp("phase 5n (user utilities)")
     v1725_phase(dev, smi, kernels, N_V1725)
     primitives_phase(dev, smi, N_PRIMITIVES)
     stamp("phases 5h-5i (V1725, primitives)")
@@ -3288,6 +3614,10 @@ def main() -> None:
             # request (2 runs), and waveform-process
             "surface_launches": {s: surface[s][name]
                                  for s in ("server_get_data", "server_batched", "cli")},
+            # slice 13's user utilities: the card's df_events request, the
+            # strax facade's get_array(hit), the browser and the reloaded
+            # user plugin
+            "utility_launches": {s: got[name] for s, got in utility_launches.items()},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -438,4 +438,4 @@ def test_tutorial_on_cpu(capsys):
     out = tutorial.main(["--device", "cpu"])
     assert out == {"st_waveforms": 192, "df": 192, "df_paired": 96, "key_changed": True}
     printed = capsys.readouterr().out
-    assert "device: cpu" in printed and "utils/visualization.py" in printed
+    assert "device: cpu" in printed and "waves.png" in printed

@@ -77,6 +77,24 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.utils.doc_coverage",
     "waveformanalysis_tpu_torch.utils.cli_docs",
     "waveformanalysis_tpu_torch.server",
+    "waveformanalysis_tpu_torch.plugins.adapters",
+    "waveformanalysis_tpu_torch.plugins.loader",
+    "waveformanalysis_tpu_torch.plugins.hot_reload",
+    "waveformanalysis_tpu_torch.utils.io",
+    "waveformanalysis_tpu_torch.utils.preview",
+    "waveformanalysis_tpu_torch.utils.visualization",
+    "waveformanalysis_tpu_torch.utils.event_filters",
+    "waveformanalysis_tpu_torch.examples.s1_s2_pipeline_demo",
+    "waveformanalysis_tpu_torch.examples.waveform_width_example",
+    "waveformanalysis_tpu_torch.examples.signal_processing_example",
+    "waveformanalysis_tpu_torch.examples.dual_baseline_example",
+    "waveformanalysis_tpu_torch.examples.config_management_example",
+    "waveformanalysis_tpu_torch.examples.list_plugin_configs_example",
+    "waveformanalysis_tpu_torch.examples.progress_tracking_demo",
+    "waveformanalysis_tpu_torch.examples.preview_execution_demo",
+    "waveformanalysis_tpu_torch.examples.doc_generator_demo",
+    "waveformanalysis_tpu_torch.examples.verify_lineage_demo",
+    "waveformanalysis_tpu_torch.examples.preview_quickstart",
 )
 
 
@@ -105,7 +123,11 @@ def test_port_imports_without_jax():
             "TimeRangeQueryEngine", "BatchProcessor", "ExecutorManager",
             "parallel_map", "PipelineServer", "DataExporter", "DependencyAnalyzer",
             "CacheManager", "DAQRun", "DAQAnalyzer", "LineageGraphModel",
-            "build_lineage_graph"} <= set(result["names"])
+            "build_lineage_graph", "wrap_strax_plugin", "StraxContextAdapter",
+            "PluginLoader", "enable_hot_reload", "PluginHotReloader", "parse_and_stack_files",
+            "WaveformPreviewer", "preview_waveforms", "plot_records_waveforms",
+            "plot_lineage_labview", "plot_lineage_plotly", "plot_waveforms",
+            "create_interactive_browser", "LineageStyle"} <= set(result["names"])
     assert result["leaked"] == []
 
 

@@ -23,9 +23,8 @@ JAX package                     port
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
-Names whose modules are not ported yet (the sharded chains, the plugin
-loaders, previews and plotting utilities, ...) are absent: asking for one
-raises ``AttributeError``.
+Names whose modules are not ported yet (the sharded chains of the
+multi-device package) are absent: asking for one raises ``AttributeError``.
 
 Ported so far:
 
@@ -72,7 +71,15 @@ Ported so far:
   the cache suite (``storage/cache_ops.py``, ``CacheManager``), the export
   (``DataExporter``), the dependency analysis (``DependencyAnalyzer``), the
   lineage graph (``build_lineage_graph``) and the DAQ inspection
-  (``DAQRun``, ``DAQAnalyzer``).
+  (``DAQRun``, ``DAQAnalyzer``);
+- slice 13, the user utilities: the plugin loader (``PluginLoader``), hot
+  reload (``enable_hot_reload``), the strax adapters (``wrap_strax_plugin``,
+  ``StraxContextAdapter``), file parsing (``parse_and_stack_files``), raw
+  previews (``WaveformPreviewer``, ``preview_waveforms``), the event
+  filters (``utils/event_filters.py``), the plots (``plot_waveforms``,
+  ``plot_records_waveforms``, ``plot_lineage_labview`` / ``_plotly``,
+  ``Context.plot_lineage``, ``create_interactive_browser``) and the
+  examples under ``waveformanalysis_tpu_torch.examples``.
 """
 
 from __future__ import annotations
@@ -102,6 +109,11 @@ _LAZY_API = {
     "StreamingPlugin": (_P + "plugins.streaming", "StreamingPlugin"),
     "StreamingContext": (_P + "plugins.streaming", "StreamingContext"),
     "get_streaming_context": (_P + "plugins.streaming", "get_streaming_context"),
+    "wrap_strax_plugin": (_P + "plugins.adapters", "wrap_strax_plugin"),
+    "StraxContextAdapter": (_P + "plugins.adapters", "StraxContextAdapter"),
+    "PluginLoader": (_P + "plugins.loader", "PluginLoader"),
+    "enable_hot_reload": (_P + "plugins.hot_reload", "enable_hot_reload"),
+    "PluginHotReloader": (_P + "plugins.hot_reload", "PluginHotReloader"),
     # context / storage
     "Context": (_P + "context.context", "Context"),
     "MemmapStorage": (_P + "storage.memmap", "MemmapStorage"),
@@ -156,6 +168,16 @@ _LAZY_API = {
     "DAQAnalyzer": (_P + "utils.daq", "DAQAnalyzer"),
     "LineageGraphModel": (_P + "foundation.model", "LineageGraphModel"),
     "build_lineage_graph": (_P + "foundation.model", "build_lineage_graph"),
+    # user utilities: file parsing, previews, plots
+    "parse_and_stack_files": (_P + "utils.io", "parse_and_stack_files"),
+    "WaveformPreviewer": (_P + "utils.preview", "WaveformPreviewer"),
+    "preview_waveforms": (_P + "utils.preview", "preview_waveforms"),
+    "plot_records_waveforms": (_P + "utils.preview", "plot_records_waveforms"),
+    "plot_lineage_labview": (_P + "utils.visualization", "plot_lineage_labview"),
+    "plot_lineage_plotly": (_P + "utils.visualization", "plot_lineage_plotly"),
+    "plot_waveforms": (_P + "utils.visualization", "plot_waveforms"),
+    "create_interactive_browser": (_P + "utils.visualization", "create_interactive_browser"),
+    "LineageStyle": (_P + "utils.visualization", "LineageStyle"),
     # foundation
     "Profiler": (_P + "foundation.profiler", "Profiler"),
     "OneTimeGenerator": (_P + "foundation.utils", "OneTimeGenerator"),

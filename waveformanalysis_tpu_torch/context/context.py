@@ -956,6 +956,26 @@ class Context:
                   f"default={row['default']}{cur} [{row['type']}] "
                   f"{row['help']}")
 
+    def plot_lineage(self, data_name: str, renderer: str = "labview",
+                     **kwargs: Any):
+        """Render the dependency/lineage graph for a data name
+        (reference: context.py:1189). renderer: 'labview' (matplotlib) or
+        'plotly'. Extra kwargs (verbose, style, interactive,
+        analysis_result, highlight_*) pass through to the renderer."""
+        from waveformanalysis_tpu_torch.utils.visualization import (
+            plot_lineage_labview,
+            plot_lineage_plotly,
+        )
+
+        lineage = self.get_lineage(data_name)
+        if renderer == "plotly":
+            return plot_lineage_plotly(lineage, data_name, context=self,
+                                       **kwargs)
+        if renderer == "labview":
+            return plot_lineage_labview(lineage, data_name, context=self,
+                                        **kwargs)
+        raise ValueError(f"unknown renderer {renderer!r}; use labview|plotly")
+
     def quickstart(self) -> str:
         """Getting-started walkthrough for this Context (reference:
         context.py:2318). Prints runnable steps using the currently

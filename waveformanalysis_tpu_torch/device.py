@@ -49,6 +49,17 @@ def to_numpy(x: Any) -> np.ndarray:
     return np.asarray(x)
 
 
+def to_host(data: Any) -> Any:
+    """``data`` with no tensor left in it, for host code that reads it with
+    NumPy (the plots, the strax adapters, ``RecordsView``): a Table with its
+    columns on the host (``Table.to_host``), a tensor as a NumPy array,
+    anything else as it is."""
+    if isinstance(data, torch.Tensor):
+        return to_numpy(data)
+    to_host_ = getattr(data, "to_host", None)
+    return to_host_() if callable(to_host_) else data
+
+
 def to_device(x: Any, device: torch.device) -> torch.Tensor:
     """A tensor on ``device`` from a tensor or a host array (copied)."""
     if isinstance(x, torch.Tensor):

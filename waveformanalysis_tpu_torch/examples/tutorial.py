@@ -86,9 +86,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
               f"head {w0[:8].tolist()}")
 
         # -- 5. waveform plotting ---------------------------------------------
-        section("5. waveform plotting")
-        print("not in the port yet: utils/visualization.py comes with "
-              "ROADMAP.md Queue 1, item 8")
+        section("5. waveform plotting (Agg backend, saved to file)")
+        try:  # matplotlib is optional
+            import matplotlib
+
+            matplotlib.use("Agg")
+            from waveformanalysis_tpu_torch.utils.visualization import plot_waveforms
+
+            fig = plot_waveforms(st, max_events=4)
+            out_png = Path(tmp) / "waves.png"
+            fig.savefig(out_png)
+            print(f"saved {out_png}")
+        except ImportError as exc:
+            print(f"plotting skipped: {exc}")
 
         # -- 6. config management ---------------------------------------------
         section("6. config management (lineage-aware)")
