@@ -80,8 +80,18 @@ version on the card, and drives the port's main paths:
   ``create_interactive_browser`` (K2 once each), the records view, the
   lineage plot, a user plugin found by ``PluginLoader`` and hot-reloaded
   (K2 again after the edit), with the memory held flat; the renders run
-  where matplotlib is installed; then the port's fifteen examples, eight
-  processes at a time.
+  where matplotlib is installed;
+- slice 14, a mesh of 8 shards (one card holds all 8; several cards hold
+  them in blocks): ``make_sharded_chain_scan`` / ``make_sharded_chain_tile``
+  on 1,048,576 events (K1 / K7 once a shard, = the one-device steps bit for
+  bit, timed beside them) and ``make_sharded_chain``; the halo pipeline;
+  ``sharded_time_sort`` against ``np.lexsort`` and the records mesh merge of
+  slice 8's files against the host merge; a mesh Context on 262,144
+  injected waveforms (K2-K4 once a shard, = the one-device Context bit for
+  bit, memory flat) and ``get_data_batched`` on the mesh; the ``hit`` and
+  ``signal_peaks_stream`` streams of the files on the mesh and
+  ``merge_stream(backend="device")``; then the port's seventeen examples,
+  eight processes at a time.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -2188,20 +2198,355 @@ def utilities_phase(dev, smi: str, kernels: dict, daq: str, source: str,
             "hot_reload": launches["user_hit reloaded"]}
 
 
+N_MESH_SHARDS = 8  # phase 5o's mesh: [cuda:0] * 8 on one card (parallel.spread_devices)
+N_MESH_PLAIN = 65_536  # make_sharded_chain (the plain chain) on the mesh
+N_MESH_SORT = 262_144  # sharded_time_sort rows (sort_records: two boards, timestamp ties)
+N_MESH_BATCH_RUNS = 4  # get_data_batched on the mesh: runs of N_EVENTS
+
+
+def split_parts(bundle, part_size: int) -> list:
+    """A records bundle as the records builder's parts: each (board, channel)'s rows
+    in time order, cut every ``part_size`` rows, each part with its own
+    pool."""
+    from waveformanalysis_tpu_torch.processing import records_builder as RB
+
+    rec = bundle.records
+    group = np.asarray(rec["board"]).astype(np.int64) * 1024 + np.asarray(rec["channel"])
+    parts = []
+    for g in np.unique(group):
+        rows = np.flatnonzero(group == g)
+        for lo in range(0, len(rows), part_size):
+            r = rec.select(rows[lo:lo + part_size])
+            pool, offsets = RB.gather_pool(bundle.wave_pool, np.asarray(r["wave_offset"]),
+                                           np.asarray(r["event_length"]))
+            parts.append(RB.RecordsBundle(r.with_columns(wave_offset=offsets), pool))
+    return parts
+
+
+def mesh_phase(dev, smi: str, kernels: dict, daq: str, source: str, n: int,
+               n_chain: int) -> dict:
+    """Slice 14's main path on a mesh of N_MESH_SHARDS shards
+    (``spread_devices``: the cards in blocks, so one card holds all 8).
+
+    The sharded chains on ``make_batch(n_chain, WAVE_LEN)`` with bench.py's
+    config: K1's and K7's steps launch their kernel once a shard, their
+    per-event outputs = the one-device steps' bit for bit and their
+    statistics = the sums over the one-device outputs in shard order; both
+    timed beside the one-device steps in turns (CUDA events, median of 7, a
+    fresh input each iteration); ``make_sharded_chain`` (no kernel) at
+    N_MESH_PLAIN = the plain chain. The halo pipeline: a 3-point moving sum
+    = the same sum over the whole array. ``sharded_time_sort`` on
+    N_MESH_SORT rows with multi-board timestamp ties = ``np.lexsort``, and
+    ``merge_records_parts(parts, mesh)`` on the records of the ``source``
+    files, cut into the records builder's parts, = the host merge; both timed. The
+    mesh Context: ``n`` injected waveforms with slice 2's route settings (all
+    five members fused), cold one-device and mesh runs on the same waves
+    (tables bit-identical, lineage keys equal), then warm runs in turns on
+    fresh waves: K2, K3 and K4 once a shard, memory allocated after each
+    mesh run flat; ``get_data_batched`` over N_MESH_BATCH_RUNS runs of
+    N_EVENTS on the mesh (K2-K4 once a shard) = per-run one-device tables.
+    A stream on the mesh: the ``source`` files' ``hit`` stream and
+    ``signal_peaks_stream`` (executor_type "device") on the mesh = without
+    it, chunk for chunk, and ``merge_stream(backend="device")`` = the host
+    merge. Returns the launch counts of each mesh call."""
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.dtypes import chunk as C
+    from waveformanalysis_tpu_torch.models.full_chain import (
+        CHAIN_OUT_KEYS,
+        ChainConfig,
+        make_chain,
+        make_sharded_chain,
+    )
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+    from waveformanalysis_tpu_torch.parallel.mesh import make_mesh, spread_devices
+    from waveformanalysis_tpu_torch.parallel.scan import make_sharded_pipeline
+    from waveformanalysis_tpu_torch.parallel.sorted_merge import sharded_time_sort
+    from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
+    from waveformanalysis_tpu_torch.plugins.streaming import get_streaming_context
+    from waveformanalysis_tpu_torch.processing import records_builder as RB
+    from waveformanalysis_tpu_torch.processing.loader import get_raw_files
+    from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
+
+    card = on_card(dev)
+    t_phase = time.perf_counter()
+
+    def sync() -> None:
+        if card:
+            torch.cuda.synchronize(dev)
+
+    def held() -> int:
+        sync()
+        return torch.cuda.memory_allocated(dev) if card else 0
+
+    def reset() -> None:
+        for fn in kernels.values():
+            fn.launches = 0
+
+    def counts(want: dict, tag: str) -> dict:
+        got = {k: fn.launches for k, fn in kernels.items()}
+        if card:
+            full = {k: want.get(k, 0) for k in kernels}
+            check(got == full, f"{tag}: launches {got}, expected {full}")
+        return got
+
+    def step_ms(fn) -> float:  # CUDA events on the card, the host clock here
+        if card:
+            return median_ms(fn)
+        fn(0)
+        return timeit_s(lambda: fn(1)) * 1e3
+
+    def gathered(x) -> torch.Tensor:
+        return torch.cat([s.to(dev) for s in x.shards])
+
+    mesh = make_mesh(devices=spread_devices(dev, N_MESH_SHARDS))
+    shards, m_rows = N_MESH_SHARDS, n_chain // N_MESH_SHARDS
+    where = f"{shards} shards on {len(set(mesh.devices.flat))} device(s)"
+    launches = {}
+
+    # ---- the sharded chains -------------------------------------------------
+    cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                      peak_width=2.0)
+    w = torch.from_numpy(make_batch(n_chain, WAVE_LEN, seed=0)).to(dev)
+    el = torch.full((n_chain,), WAVE_LEN, dtype=torch.int32, device=dev)
+    bl = torch.full((n_chain,), 1000.0, device=dev)
+    pol = torch.ones(n_chain, dtype=torch.int8, device=dev)
+    steps = {"chain_scan": (csc.make_chain_scan(cfg), csc.make_sharded_chain_scan(mesh, cfg)),
+             "chain_tile": (ctc.make_chain_tile(cfg), ctc.make_sharded_chain_tile(mesh, cfg))}
+    launches["chain_step"] = {}
+    for name, (one, sharded) in steps.items():
+        ref = one(w, el, bl, pol)
+        reset()
+        out = sharded(w, el, bl, pol)
+        sync()
+        launches["chain_step"][name] = counts({name: shards}, f"sharded {name} step")[name]
+        for k in CHAIN_OUT_KEYS:
+            check(torch.equal(gathered(out[k]), ref[k]), f"sharded {name}: {k} != one device")
+        parts = [ref["area"][i * m_rows:(i + 1) * m_rows].sum() for i in range(shards)]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        label = ref["label"]
+        want = {"n_s1": (label == 1).sum(dtype=torch.int32),
+                "n_s2": (label == 2).sum(dtype=torch.int32), "total_area": total,
+                "n_peak_overflow": ref["n_peak_overflow"], "n_hit_overflow": ref["n_hit_overflow"]}
+        for k, v in want.items():
+            check(torch.equal(out[k].to(dev), v), f"sharded {name}: {k} {out[k]} != {v}")
+        # in turns: one device, sharded, sharded, one device
+        t_one = step_ms(lambda k: one(w + k, el, bl + k, pol))
+        t_sh = step_ms(lambda k: sharded(w + k, el, bl + k, pol))
+        t_sh2 = step_ms(lambda k: sharded(w + k, el, bl + k, pol))
+        t_one2 = step_ms(lambda k: one(w + k, el, bl + k, pol))
+        print(f"main path 14 {name} {n_chain}x{WAVE_LEN} on {where} ({smi}): "
+              f"make_sharded_{'chain_scan' if name == 'chain_scan' else 'chain_tile'} launches "
+              f"{name} x{launches['chain_step'][name]}; every per-event output = the one-device "
+              f"step's bit for bit; n_s1 {int(want['n_s1'])}, n_s2 {int(want['n_s2'])}, "
+              f"total_area {float(total):.1f}, overflows = the sums over the one-device outputs "
+              f"(bit for bit); step ms, median of 7 in turns (fresh input each iteration): one "
+              f"device {t_one:.3f} / {t_one2:.3f}, sharded {t_sh:.3f} / {t_sh2:.3f}", flush=True)
+        del ref, out
+    wp, elp, blp, polp = (x[:N_MESH_PLAIN] for x in (w, el, bl, pol))
+    ref = make_chain(cfg)(wp, elp, blp, polp)
+    reset()
+    out = make_sharded_chain(mesh, cfg)(wp, elp, blp, polp)
+    counts({}, "make_sharded_chain")
+    for k in CHAIN_OUT_KEYS:
+        check(torch.equal(gathered(out[k]), ref[k]), f"make_sharded_chain: {k} != make_chain")
+    check(int(out["n_s1"]) == int((ref["label"] == 1).sum()), "make_sharded_chain: n_s1")
+    print(f"main path 14 make_sharded_chain {N_MESH_PLAIN}x{WAVE_LEN} on {where}: = make_chain "
+          f"bit for bit, no kernel launch", flush=True)
+    del w, el, bl, pol, wp, elp, blp, polp, ref, out
+
+    # ---- the halo pipeline ---------------------------------------------------
+    x = torch.from_numpy(np.random.default_rng(5).normal(0, 1, n_chain).astype(np.float32)).to(dev)
+
+    def smooth(v, left_halo=None, right_halo=None):
+        ext = torch.cat([left_halo, v, right_halo])
+        return {"smoothed": ext[:-2] + ext[1:-1] + ext[2:], "total": v.sum()}
+
+    out = make_sharded_pipeline(mesh, smooth, 1, ("smoothed", "total"), ("total",), halo=1)(x)
+    zero = x.new_zeros(1)
+    whole = smooth(x, zero, zero)["smoothed"]
+    check(torch.equal(gathered(out["smoothed"]), whole), "halo pipeline != the whole array's sum")
+    print(f"main path 14 halo pipeline {n_chain} f32 on {where}: 3-point moving sum = the same "
+          f"sum over the whole array bit for bit", flush=True)
+    del x, out, whole
+
+    # ---- the sharded time sort and the records mesh merge ---------------------
+    rec = sort_records(N_MESH_SORT, 2, seed=7)
+    cols = {k: np.asarray(rec[k]) for k in rec.field_names}
+    cols["row"] = np.arange(N_MESH_SORT, dtype=np.int64)
+    keys = ("timestamp", "pid", "board", "channel")
+    order = np.lexsort(tuple(cols[k] for k in reversed(keys)))
+    t_sort, t_lex = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = sharded_time_sort(cols, keys, mesh)
+        t_sort.append(time.perf_counter() - t0)
+        t_lex.append(timeit_s(lambda: np.lexsort(tuple(cols[k] for k in reversed(keys)))))
+    for k in cols:
+        check(np.array_equal(got[k], cols[k][order]), f"sharded_time_sort: {k} != np.lexsort")
+    ties = int(np.sum(np.diff(cols["timestamp"][order]) == 0))
+    print(f"main path 14 sharded_time_sort {N_MESH_SORT} rows, 2 boards, {ties} timestamp ties, "
+          f"on {where} ({smi}): = np.lexsort (the input order kept on ties); host wall ms, median "
+          f"of 3 (upload, sort, fetch): {statistics.median(t_sort) * 1e3:.1f}; np.lexsort "
+          f"{statistics.median(t_lex) * 1e3:.1f}", flush=True)
+    raw = get_raw_files(source, data_root=daq, n_channels=2)
+    parts = split_parts(RB.build_records_from_raw_files(raw, "vx2730", part_size=None),
+                        RECORDS_PART_SIZE)
+    t0 = time.perf_counter()
+    host = RB.merge_records_parts(parts)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    meshed = RB.merge_records_parts(parts, mesh=mesh)
+    t_mesh = time.perf_counter() - t0
+    check_identical(host.records, meshed.records, "records mesh merge")
+    check(np.array_equal(host.wave_pool, meshed.wave_pool), "records mesh merge: wave_pool")
+    print(f"main path 14 merge_records_parts of {len(parts)} parts ({len(host.records)} records "
+          f"of the {source} files) on {where} ({smi}): = the host merge bit for bit (records "
+          f"and wave_pool); wall {t_mesh * 1e3:.1f} ms, host {t_host * 1e3:.1f} ms", flush=True)
+    del rec, cols, got, raw, parts, host, meshed
+
+    # ---- the mesh Context ---------------------------------------------------------
+    route = {k: 1 for k in ("peaks_scan", "hits_scan", "width_scan")}
+    on_mesh = {k: shards for k in route}
+    plugins = route_plugin_classes()[:5]
+    with tempfile.TemporaryDirectory() as tmp:
+        ctxs = {"one": make_route_context(Context, plugins, f"{tmp}/one", dev.type),
+                "mesh": make_route_context(Context, plugins, f"{tmp}/mesh", dev.type)}
+        ctxs["mesh"].attach_mesh(mesh)
+        base = make_batch(n, WAVE_LEN, seed=11)
+        walls, memory, tables = {"one": [], "mesh": []}, [], {}
+        order = ("one", "mesh", "mesh", "one", "one", "mesh")  # the cold pair, then turns
+        for i, side in enumerate(order):
+            ctx, rid = ctxs[side], f"m{max(i, 1)}"  # the cold pair reads the same waves
+            ctx.inject_data(rid, "st_waveforms", st_waveforms_from_waves(base + np.int16(i // 2)))
+            ctx.profiler.reset()
+            reset()
+            sync()
+            t0 = time.perf_counter()
+            out = ctx.get_data(rid, list(MEMBERS))
+            sync()
+            walls[side].append(time.perf_counter() - t0)
+            got = counts(on_mesh if side == "mesh" else route, f"{side} Context run {i}")
+            if side == "mesh":
+                launches.setdefault("context", got)
+                memory.append(held())
+                phases = {k.split(".", 2)[2]: round(v["total_s"] * 1e3, 1) for k, v in
+                          ctx.profiler.stats().items() if k.startswith("fusion.single.")}
+            if i < 2:
+                tables[side] = out
+            ctx.flush_saves()
+        for name in MEMBERS:
+            check_identical(tables["one"][name], tables["mesh"][name], f"mesh Context {name}")
+            check(ctxs["one"].key_for("m1", name) == ctxs["mesh"].key_for("m1", name),
+                  f"mesh Context: the lineage key of {name} differs")
+        check(max(memory) - min(memory) <= 16 << 20,
+              f"mesh Context: memory allocated after each run {memory} B is not flat")
+        print(f"main path 14 mesh Context {n}x{WAVE_LEN} on {where} ({smi}): get_data(run, "
+              f"{list(MEMBERS)}) = the one-device card Context's tables bit for bit "
+              f"({ {m: len(tables['mesh'][m]) for m in MEMBERS} }), lineage keys equal; "
+              f"launches {nonzero(launches['context'])}; cold wall one device "
+              f"{walls['one'][0] * 1e3:.1f} ms, mesh {walls['mesh'][0] * 1e3:.1f} ms; warm walls "
+              f"in turns: mesh {[round(t * 1e3, 1) for t in walls['mesh'][1:]]} ms, one device "
+              f"{[round(t * 1e3, 1) for t in walls['one'][1:]]} ms; the last mesh run's "
+              f"fusion.single phases ms {phases}; memory allocated after each mesh run "
+              f"{sorted(set(memory))} B, flat", flush=True)
+        del tables, out
+        runs = [f"b{i}" for i in range(N_MESH_BATCH_RUNS)]
+        for i, rid in enumerate(runs):
+            st = st_waveforms_from_waves(make_batch(N_EVENTS, WAVE_LEN, seed=20 + i))
+            for ctx in ctxs.values():
+                ctx.inject_data(rid, "st_waveforms", st)
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        out = ctxs["mesh"].get_data_batched(runs, list(MEMBERS))
+        sync()
+        t_b = time.perf_counter() - t0
+        launches["batched"] = counts(on_mesh, "batched on the mesh")
+        for rid in runs:
+            ref = ctxs["one"].get_data(rid, list(MEMBERS))
+            for name in MEMBERS:
+                check_identical(ref[name], out[rid][name], f"batched mesh {rid}/{name}")
+        print(f"main path 14 get_data_batched over {N_MESH_BATCH_RUNS} runs of {N_EVENTS}x"
+              f"{WAVE_LEN} on {where} ({smi}): one program, launches "
+              f"{nonzero(launches['batched'])}; every table = per-run get_data on the one-device "
+              f"card Context bit for bit; wall {t_b * 1e3:.1f} ms", flush=True)
+        for ctx in ctxs.values():
+            ctx.flush_saves()
+        del ctxs, out, base
+
+    # ---- a stream on the mesh ------------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        plain = ingest_context(Context, get_profile("streaming"), daq, f"{tmp}/s", dev.type)
+        plain.set_config({"signal_peaks_stream": {"streaming_config": {
+            "executor_type": "device"}}})
+        run = link_run(daq, source, "mesh_stream")
+        st = plain.get_data(run, "st_waveforms")
+        rows = len(st)
+        halo = {"required_halo_left_ns": float(WAVE_LEN * int(C._col(st, "dt")[0]))}
+        del st
+        plain.get_data(run, "filtered_waveforms")
+        meshed = plain.clone().attach_mesh(mesh)
+        n_chunks, sp_chunks = -(-rows // STREAM_CHUNK), -(-rows // SIGNAL_PEAKS_CHUNK)
+        streams, stream_walls = {}, {}
+        for tag, ctx in (("one", plain), ("mesh", meshed)):
+            sc = get_streaming_context(ctx)
+            reset()
+            t0 = time.perf_counter()
+            streams[tag, "hit"] = list(sc.get_stream(run, "hit", executor_type="device", **halo))
+            sync()
+            stream_walls[tag, "hit"] = time.perf_counter() - t0
+            got = counts({"peaks_scan": n_chunks}, f"{tag} hit stream")
+            reset()
+            t0 = time.perf_counter()
+            streams[tag, "sp"] = list(ctx.get_data(run, "signal_peaks_stream"))
+            sync()
+            stream_walls[tag, "sp"] = time.perf_counter() - t0
+            got_sp = counts({"peaks_scan": sp_chunks}, f"{tag} signal_peaks_stream")
+            if tag == "mesh":
+                launches["stream_hit"], launches["signal_peaks_stream"] = got, got_sp
+        check_chunks(streams["one", "hit"], streams["mesh", "hit"], "mesh hit stream")
+        check_chunks(streams["one", "sp"], streams["mesh", "sp"], "mesh signal_peaks_stream")
+        sc = get_streaming_context(meshed)
+        t0 = time.perf_counter()
+        merged = sc.merge_stream(streams["mesh", "hit"], backend="device", mesh=mesh)
+        t_merge = time.perf_counter() - t0
+        check_identical(sc.merge_stream(streams["mesh", "hit"], backend="host"), merged,
+                        "merge_stream(backend='device')")
+        print(f"main path 14 streams of the {source} files ({rows} waveforms) on {where} ({smi}):"
+              f" hit ({n_chunks} chunks of {STREAM_CHUNK}, K2 x{n_chunks}) and "
+              f"signal_peaks_stream ({sp_chunks} chunks, executor_type 'device', K2 "
+              f"x{sp_chunks}) = without the mesh chunk for chunk; merge_stream(backend='device')"
+              f" of the hit stream ({len(merged)} rows) = the host merge bit for bit in "
+              f"{t_merge * 1e3:.1f} ms; walls ms one device / mesh: hit "
+              f"{stream_walls['one', 'hit'] * 1e3:.1f} / {stream_walls['mesh', 'hit'] * 1e3:.1f}, "
+              f"signal_peaks_stream {stream_walls['one', 'sp'] * 1e3:.1f} / "
+              f"{stream_walls['mesh', 'sp'] * 1e3:.1f}", flush=True)
+        plain.flush_saves()
+        meshed.flush_saves()
+        del streams, merged
+    print(f"main path 14 phase 5o: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 EXAMPLES = ("records_pipeline_example", "records_view_example", "batched_multirun_demo",
             "streaming_demo", "s1_s2_pipeline_demo", "waveform_width_example",
             "signal_processing_example", "dual_baseline_example", "config_management_example",
             "list_plugin_configs_example", "progress_tracking_demo", "preview_execution_demo",
-            "doc_generator_demo", "verify_lineage_demo", "preview_quickstart")
+            "doc_generator_demo", "verify_lineage_demo", "preview_quickstart",
+            "multichip_demo", "tutorial_advanced")
 EXAMPLE_WORKERS = 8  # example processes at once, one a core of the card's host
 # (each starts python, torch and a CUDA context)
 
 
 def examples_phase() -> None:
     """The port's examples as a user runs them (on the card by default):
-    the records examples, the batched multi-run and streaming demos, and the
-    eleven of slice 13, EXAMPLE_WORKERS processes at a time. Each must exit
-    0 and say ``device: cuda``."""
+    the records examples, the batched multi-run and streaming demos, the
+    eleven of slice 13 and the two of slice 14, EXAMPLE_WORKERS processes at
+    a time. Each must exit 0 and say ``device: cuda``."""
     from concurrent.futures import ThreadPoolExecutor
 
     def run(name: str):
@@ -3144,6 +3489,7 @@ def main() -> None:
     # ---- phase 5l: slice 11, chunked streaming on the files ---------------
     # ---- phase 5m: slice 12, the surface (server, CLIs) on the files -------
     # ---- phase 5n: slice 13, the user utilities on the files --------------
+    # ---- phase 5o: slice 14, a mesh of 8 shards (chains, sort, Context, streams)
     with tempfile.TemporaryDirectory() as files:
         daq = f"{files}/DAQ"
         ingest_launches, written = ingest_phase(dev, smi, kernels, N_INGEST, N_INGEST_CPU, daq)
@@ -3162,6 +3508,9 @@ def main() -> None:
         utility_launches = utilities_phase(dev, smi, kernels, daq, "ingest3", "cmp", N_INGEST)
         torch.cuda.empty_cache()
         stamp("phase 5n (user utilities)")
+        mesh_launches = mesh_phase(dev, smi, kernels, daq, "ingest3", N_INGEST, N_LARGE)
+        torch.cuda.empty_cache()
+        stamp("phase 5o (mesh)")
     v1725_phase(dev, smi, kernels, N_V1725)
     primitives_phase(dev, smi, N_PRIMITIVES)
     stamp("phases 5h-5i (V1725, primitives)")
@@ -3618,6 +3967,11 @@ def main() -> None:
             # strax facade's get_array(hit), the browser and the reloaded
             # user plugin
             "utility_launches": {s: got[name] for s, got in utility_launches.items()},
+            # slice 14's mesh of 8 shards: a sharded K1 / K7 step, a mesh
+            # Context request, a batched mesh request, the mesh streams
+            "mesh_launches": {"chain_step": mesh_launches["chain_step"].get(name, 0),
+                              **{s: got[name] for s, got in mesh_launches.items()
+                                 if s != "chain_step"}},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -242,11 +242,8 @@ def test_fused_chain_demo_on_cpu():
         assert (r["accuracy"], r["n_s1"], r["n_s2"]) == (1.0, 32, 32), name
 
 
-# JAX facade names whose modules the port does not have yet (ROADMAP
-# Queue 1: multi-device)
-NOT_YET_PORTED = (
-    "make_sharded_chain", "make_sharded_chain_pallas", "make_sharded_chain_scan",
-)
+# JAX facade names whose modules the port does not have yet: none
+NOT_YET_PORTED = ()
 # JAX facade name -> the port's name for it (kernel-named chain entries and
 # the TPU-named default profile)
 MAPPED = {
@@ -255,6 +252,7 @@ MAPPED = {
     "chain_scan_pallas": "chain_scan_cuda",
     "make_jit_chain_pallas": "make_chain_tile",
     "chain_pallas": "chain_tile_cuda",
+    "make_sharded_chain_pallas": "make_sharded_chain_tile",
     "tpu_default": "cuda_default",
 }
 

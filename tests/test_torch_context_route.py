@@ -333,10 +333,24 @@ def test_scan_backend_on_cpu_context_raises(tmp_path):
         ctx.get_data("r", "hit")
 
 
-def test_attach_mesh_not_ported(tmp_path):
-    ctx = _port_ctx(tmp_path, _st())
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ctx.attach_mesh(object())
+def test_attach_mesh_route_matches_jax_and_one_device(tmp_path, route_reference):
+    """The route on an 8-shard CPU mesh (the fused program on every shard)
+    = the JAX route, and = the port's one-device route bit for bit."""
+    from waveformanalysis_tpu_torch.parallel.mesh import make_mesh
+
+    st, ref = route_reference
+    one = _port_ctx(tmp_path / "one", st)
+    ctx = _port_ctx(tmp_path / "mesh", st).attach_mesh(make_mesh(devices=["cpu"] * 8))
+    out = ctx.get_data("r", ["s1_s2", "hit_threshold"])
+    assert "fusion.single.device_program" in ctx.profiler.stats()
+    one.get_data("r", ["s1_s2", "hit_threshold"])
+    for m in MEMBERS:
+        got = ctx.get_data("r", m)
+        _tables_close(ref[m], got, m)
+        want = one.get_data("r", m)
+        for f in want.field_names:
+            np.testing.assert_array_equal(np.asarray(got[f]), np.asarray(want[f]), err_msg=m)
+    assert len(out["s1_s2"]) == len(ref["s1_s2"])
 
 
 def test_chip_smoke_route_constants(tmp_path):

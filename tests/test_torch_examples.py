@@ -1,6 +1,7 @@
-"""The port's examples that wait on the user utilities, on the CPU.
+"""The port's examples that wait on the user utilities, and the two
+multi-device examples, on the CPU.
 
-Each of the eleven runs at its demo shape through ``main(device="cpu")``
+Each of the thirteen runs at its demo shape through ``main(device="cpu")``
 (matplotlib's Agg backend for the lineage plot) and its returned numbers
 are held to what the JAX package's twin under ``examples/`` prints on the
 same inputs. Together they take about 3 s here. Without a card the
@@ -97,7 +98,24 @@ def _check_preview(r):
                                   [1011, 1003, 1002, 998, 999, 1005, 996, 999])
 
 
+def _check_multichip(r):
+    # = the JAX package's examples/multichip_demo.py on its 8 virtual devices
+    assert r == {"n_s1": 256, "n_s2": 256, "total_area": 4775666.0}
+
+
+def _check_advanced(r):
+    # = the JAX package's examples/tutorial_advanced.py (its step 7 reads
+    # hit_threshold alone; the port adds waveform_width_integral so that the
+    # request runs the fused program on the mesh)
+    assert r["runs"] == ["run_000", "run_001", "run_002"] and r["pulse_width_rows"] == 96
+    assert r["df"] == {"run_000": (96, 1001.2), "run_001": (96, 995.2), "run_002": (96, 999.5)}
+    assert r["batched_rows"] == 288
+    assert r["mesh_rows"] == {"hit_threshold": 96, "waveform_width_integral": 96}
+
+
 EXAMPLES = {
+    "multichip_demo": _check_multichip,
+    "tutorial_advanced": _check_advanced,
     "s1_s2_pipeline_demo": _check_s1_s2,
     "waveform_width_example": _check_widths,
     "signal_processing_example": _check_signal,

@@ -95,6 +95,12 @@ KEY_MODULES = (
     "waveformanalysis_tpu_torch.examples.doc_generator_demo",
     "waveformanalysis_tpu_torch.examples.verify_lineage_demo",
     "waveformanalysis_tpu_torch.examples.preview_quickstart",
+    "waveformanalysis_tpu_torch.parallel",
+    "waveformanalysis_tpu_torch.parallel.mesh",
+    "waveformanalysis_tpu_torch.parallel.scan",
+    "waveformanalysis_tpu_torch.parallel.sorted_merge",
+    "waveformanalysis_tpu_torch.examples.multichip_demo",
+    "waveformanalysis_tpu_torch.examples.tutorial_advanced",
 )
 
 
@@ -127,7 +133,8 @@ def test_port_imports_without_jax():
             "PluginLoader", "enable_hot_reload", "PluginHotReloader", "parse_and_stack_files",
             "WaveformPreviewer", "preview_waveforms", "plot_records_waveforms",
             "plot_lineage_labview", "plot_lineage_plotly", "plot_waveforms",
-            "create_interactive_browser", "LineageStyle"} <= set(result["names"])
+            "create_interactive_browser", "LineageStyle", "make_sharded_chain",
+            "make_sharded_chain_scan", "make_sharded_chain_tile"} <= set(result["names"])
     assert result["leaked"] == []
 
 

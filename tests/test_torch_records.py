@@ -246,17 +246,29 @@ def test_merge_records_parts_matches_jax_and_one_global_sort(ragged):
     np.testing.assert_array_equal(np.asarray(got.records["record_id"]), np.arange(len(got)))
 
 
-def test_merge_over_a_mesh_names_the_multi_device_item():
-    class Mesh:
-        def __init__(self, shape):
-            self.shape = shape
+def test_merge_over_a_mesh_matches_host_and_jax():
+    """The sharded merge on an 8-shard CPU mesh (timestamp ties across
+    boards and channels, a row count that is no multiple of 8) = the host
+    merge = the JAX package's mesh merge on its 8 virtual devices, bit for
+    bit; a one-device mesh takes the host path."""
+    import jax
 
-    parts = [TRB.RecordsBundle(r, p) for r, p in
-             _random_bundles(TTable, T_RECORDS_SCHEMA, 6, n_parts=2)]
-    with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-        TRB.merge_records_parts(parts, mesh=Mesh({"x": 2}))
-    _same_bundle(TRB.merge_records_parts(parts), TRB.merge_records_parts(parts, mesh=Mesh({"x": 1})),
-                 "one-device mesh")
+    from waveformanalysis_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from waveformanalysis_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=[torch.device("cpu")] * 8)
+    tparts = [TRB.RecordsBundle(r, p) for r, p in
+              _random_bundles(TTable, T_RECORDS_SCHEMA, 6, n_parts=3)]
+    jparts = [JRB.RecordsBundle(r, p) for r, p in
+              _random_bundles(JTable, J_RECORDS_SCHEMA, 6, n_parts=3)]
+    assert sum(len(p.records) for p in tparts) % 8
+    host = TRB.merge_records_parts(tparts)
+    got = TRB.merge_records_parts(tparts, mesh=mesh)
+    _same_bundle(host, got, "mesh merge")
+    _same_bundle(JRB.merge_records_parts(jparts, mesh=jax_make_mesh(8, devices=jax.devices()[:8])),
+                 got, "JAX mesh merge")
+    one = make_mesh(devices=[torch.device("cpu")])
+    _same_bundle(host, TRB.merge_records_parts(tparts, mesh=one), "one-device mesh")
 
 
 # ---------------------------------------------------------------------------

@@ -369,3 +369,67 @@ def test_route_b_memory_held_stays_flat_on_card(tmp_path):
         assert isinstance(ctx.get_data(f"r{i}", "filtered_waveforms")["wave"], np.ndarray)
     matrix = 65_536 * 256 * 4
     assert held[2] - held[0] < matrix, held
+
+
+@pytest.mark.cuda
+def test_sharded_steps_and_mesh_context_on_card(tmp_path):
+    """On a mesh of [cuda:0] * 4: the sharded K1 and K7 steps launch once a
+    shard and equal their one-device steps bit for bit (the statistics the
+    sums over the one-device outputs); a mesh Context's route tables equal
+    the one-device Context's, K2-K4 launching once a shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    import chip_smoke
+    from bench import make_batch
+    from waveformanalysis_tpu_torch.context.context import Context
+    from waveformanalysis_tpu_torch.models.full_chain import CHAIN_OUT_KEYS, ChainConfig
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+    from waveformanalysis_tpu_torch.ops import width_scan_cuda as wsc
+    from waveformanalysis_tpu_torch.parallel.mesh import make_mesh
+    from waveformanalysis_tpu_torch.testing.fixtures import st_waveforms_from_waves
+
+    dev = torch.device("cuda:0")
+    mesh = make_mesh(devices=[dev] * 4)
+    cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                      peak_width=2.0)
+    n, L = 4 * 4096, 256
+    batch = (torch.from_numpy(make_batch(n, L, seed=3)).to(dev),
+             torch.full((n,), L, dtype=torch.int32, device=dev),
+             torch.full((n,), 1000.0, device=dev), torch.ones(n, dtype=torch.int8, device=dev))
+    for wrapper, one, sharded in ((csc.chain_scan_cuda, csc.make_chain_scan(cfg),
+                                   csc.make_sharded_chain_scan(mesh, cfg)),
+                                  (ctc.chain_tile_cuda, ctc.make_chain_tile(cfg),
+                                   ctc.make_sharded_chain_tile(mesh, cfg))):
+        ref = one(*batch)
+        before = wrapper.launches
+        out = sharded(*batch)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 4
+        for k in CHAIN_OUT_KEYS:
+            assert np.array_equal(np.asarray(out[k]), ref[k].cpu().numpy()), k
+        labels = ref["label"].cpu().numpy()
+        assert int(out["n_s1"]) == int(np.sum(labels == 1))
+        assert int(out["n_s2"]) == int(np.sum(labels == 2))
+        assert np.isclose(float(out["total_area"]), float(ref["area"].sum()), rtol=1e-4)
+        for k in ("n_peak_overflow", "n_hit_overflow"):
+            assert int(out[k]) == int(ref[k]), k
+
+    plugins = chip_smoke.route_plugin_classes()[:5]
+    kernels = (csc.find_peaks_scan, csc.threshold_hits_scan, wsc.width_crossings_scan)
+    st = st_waveforms_from_waves(make_batch(10_001, L, seed=4))
+    tables = []
+    for sub, m in (("one", None), ("mesh", mesh)):
+        ctx = chip_smoke.make_route_context(Context, plugins, str(tmp_path / sub), "cuda")
+        if m is not None:
+            ctx.attach_mesh(m)
+        ctx.inject_data("r", "st_waveforms", st)
+        before = [k.launches for k in kernels]
+        tables.append(ctx.get_data("r", list(chip_smoke.MEMBERS)))
+        got = [k.launches - b for k, b in zip(kernels, before)]
+        assert got == ([1, 1, 1] if m is None else [4, 4, 4]), (sub, got)
+    for name in chip_smoke.MEMBERS:
+        a, b = tables[0][name].to_numpy(), tables[1][name].to_numpy()
+        assert len(a) == len(b) and a.dtype == b.dtype, name
+        for f in a.dtype.names:
+            assert np.array_equal(a[f], b[f]), f"{name}.{f}"

@@ -386,12 +386,34 @@ class TestStreamingContext:
         times = np.concatenate([np.asarray(c.data["time"]) for c in chunks])
         assert times.min() >= 5000 - 20 and times.max() < 12_000
 
-    def test_merge_stream_device_backend_raises(self, tmp_path):
-        ctx, _ = _ctx(tmp_path, "port", np.arange(20) * 1000)
+    def test_merge_stream_device_backend_on_mesh(self, tmp_path):
+        """With no mesh the device backend asks for the card and raises here;
+        backend="device" (and "auto" with a mesh of 8) sorts on an 8-shard
+        CPU mesh: = the host merge = the JAX package's device merge on its 8
+        virtual devices; time ties are kept (every time twice)."""
+        from waveformanalysis_tpu.parallel.mesh import make_mesh as jax_make_mesh
+        from waveformanalysis_tpu_torch.parallel.mesh import make_mesh
+
+        times = np.repeat(np.arange(20) * 1000, 2)[::-1].copy()
+        mesh = make_mesh(devices=["cpu"] * 8)
+        got = {}
+        for pkg in ("port", "jax"):
+            ctx, _ = _ctx(tmp_path, pkg, times)
+            sc = PACKAGES[pkg][0].get_streaming_context(ctx)
+            m = mesh if pkg == "port" else jax_make_mesh(8)
+            got[pkg] = [sc.merge_stream(sc.get_stream("test_run", "source_data",
+                                                      chunk_size=7), **kw)
+                        for kw in ({"backend": "host"}, {"backend": "device", "mesh": m},
+                                   {"mesh": m})]
+        for merged in got["port"][1:]:
+            _same_table(got["port"][0], merged)
+        for a, b in zip(got["jax"], got["port"]):
+            _same_table(a, b)
+        ctx, _ = _ctx(tmp_path, "port", times)
         sc = tstreaming.get_streaming_context(ctx)
-        for kw in ({"backend": "device"}, {"mesh": object()}):
-            with pytest.raises(NotImplementedError, match="Queue 1, item 7"):
-                sc.merge_stream(sc.get_stream("test_run", "source_data", chunk_size=7), **kw)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sc.merge_stream(sc.get_stream("test_run", "source_data", chunk_size=7),
+                            backend="device")
         assert len(sc.merge_stream([])) == 0
 
 

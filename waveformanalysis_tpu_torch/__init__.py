@@ -19,12 +19,12 @@ JAX package                     port
 ``chain_scan_pallas``           ``chain_scan_cuda``
 ``make_jit_chain_pallas``       ``make_chain_tile`` (K7, ``csrc/chain_tile.cu``)
 ``chain_pallas``                ``chain_tile_cuda``
+``make_sharded_chain_pallas``   ``make_sharded_chain_tile`` (K7 on every shard)
 ``tpu_default``                 ``cuda_default`` (the default plugin profile)
 ==============================  ==========================================
 
 ``example_chain_batch`` and ``batch_from_numpy`` are on the facade too.
-Names whose modules are not ported yet (the sharded chains of the
-multi-device package) are absent: asking for one raises ``AttributeError``.
+Every other facade name of the JAX package is here under its own name.
 
 Ported so far:
 
@@ -79,7 +79,17 @@ Ported so far:
   filters (``utils/event_filters.py``), the plots (``plot_waveforms``,
   ``plot_records_waveforms``, ``plot_lineage_labview`` / ``_plotly``,
   ``Context.plot_lineage``, ``create_interactive_browser``) and the
-  examples under ``waveformanalysis_tpu_torch.examples``.
+  examples under ``waveformanalysis_tpu_torch.examples``;
+- slice 14, several devices from one process: the mesh
+  (``parallel.make_mesh``, a grid of ``torch.device``; a device may repeat,
+  so ``[cuda:0] * 8`` runs eight shards on one card), the halo pipeline and
+  the sharded time sort (``parallel/``), ``Context.attach_mesh`` (the
+  fused program's stages K2-K4 on every shard), the mesh chunk executor,
+  ``merge_stream(backend="device")``, the records mesh merge and the
+  sharded chains ``make_sharded_chain`` / ``make_sharded_chain_scan`` (K1)
+  / ``make_sharded_chain_tile`` (K7); the demos
+  ``python -m waveformanalysis_tpu_torch.examples.multichip_demo`` and
+  ``.tutorial_advanced``.
 """
 
 from __future__ import annotations
@@ -128,13 +138,16 @@ _LAZY_API = {
     "ChainConfig": (_P + "models.full_chain", "ChainConfig"),
     "full_chain_step": (_P + "models.full_chain", "full_chain_step"),
     "make_chain": (_P + "models.full_chain", "make_chain"),
+    "make_sharded_chain": (_P + "models.full_chain", "make_sharded_chain"),
     "example_chain_batch": (_P + "models.full_chain", "example_chain_batch"),
     "batch_from_numpy": (_P + "models.full_chain", "batch_from_numpy"),
     "make_chain_scan": (_P + "ops.chain_scan_cuda", "make_chain_scan"),
     "chain_scan_cuda": (_P + "ops.chain_scan_cuda", "chain_scan_cuda"),
     "find_peaks_scan": (_P + "ops.chain_scan_cuda", "find_peaks_scan"),
+    "make_sharded_chain_scan": (_P + "ops.chain_scan_cuda", "make_sharded_chain_scan"),
     "make_chain_tile": (_P + "ops.chain_tile_cuda", "make_chain_tile"),
     "chain_tile_cuda": (_P + "ops.chain_tile_cuda", "chain_tile_cuda"),
+    "make_sharded_chain_tile": (_P + "ops.chain_tile_cuda", "make_sharded_chain_tile"),
     # ingest, profiles and event grouping
     "get_adapter": (_P + "formats.adapter", "get_adapter"),
     "register_adapter": (_P + "formats.adapter", "register_adapter"),

@@ -18,10 +18,9 @@ by ``device.resolve_device``: the fused program and the standalone computes
 put every tensor there. Plugin results are struct-of-arrays Tables; storage
 round-trips them through the packed per-field layout, and a plugin's
 ``kernel_version`` is folded into lineage so kernel revisions invalidate
-caches like plugin version bumps do.
-
-Not ported yet (ROADMAP.md): ``attach_mesh`` (raises; with it the sharded
-path of ``get_data_batched``) and ``plot_lineage``.
+caches like plugin version bumps do. ``attach_mesh`` runs the fused
+program on every shard of a device mesh (``parallel/mesh.py``), with the
+same tables and lineage keys.
 """
 
 from __future__ import annotations
@@ -139,6 +138,7 @@ class Context:
         self._results: Dict[Tuple[str, str], Any] = {}
         self._results_lineage: Dict[Tuple[str, str], str] = {}
         self._manual_names: Set[str] = set()
+        self._mesh: Optional[Tuple[Any, str]] = None
         # get_data calls in flight (nested ones included: plugins read their
         # inputs through get_data, possibly from a timeout worker thread) and
         # the results they stored; see _release_device_columns
@@ -1070,6 +1070,8 @@ class Context:
         )
         for plugin in self._plugins.values():
             new.register(type(plugin)())
+        if self._mesh is not None:
+            new.attach_mesh(self._mesh[0], axis=self._mesh[1])
         # manually-injected data travels with the clone (by reference):
         # thread-pool batch workers are clones and must see the same inputs
         # the parent was given (computed results do NOT carry over — clones
@@ -1084,11 +1086,30 @@ class Context:
     # ------------------------------------------------------------------
 
     def attach_mesh(self, mesh: Any, axis: str = "data") -> "Context":
-        """Multi-device execution is not ported yet."""
-        raise NotImplementedError(
-            "attach_mesh: sharded execution over several GPUs is slice 6 of "
-            "ROADMAP.md and is not ported yet"
-        )
+        """Attach a device Mesh (``parallel.make_mesh``): fused device
+        programs then run on every shard of ``axis`` (event-axis data
+        parallelism) instead of on the Context's device alone. Purely an
+        execution-strategy switch: results and lineage keys are unchanged.
+        The mesh's devices must be of the Context's device type. Returns
+        self for chaining; ``attach_mesh(None)`` detaches.
+        """
+        if mesh is not None:
+            if axis not in mesh.shape:
+                raise ConfigError(
+                    f"Mesh has no axis {axis!r} (axes: {tuple(mesh.shape)})"
+                )
+            if mesh.device_type != self.device.type:
+                raise ConfigError(
+                    f"a mesh of {mesh.device_type} devices on a Context whose "
+                    f"device is {self.device}"
+                )
+        self._mesh = None if mesh is None else (mesh, axis)
+        return self
+
+    @property
+    def mesh(self) -> Optional[Tuple[Any, str]]:
+        """The attached (mesh, axis) tuple, or None (single-device)."""
+        return self._mesh
 
     def create_context_factory(self):
         """A picklable factory recreating an equivalent Context in another

@@ -25,8 +25,15 @@ boundaries on the host. A run computed again over the same lineage shrinks
 its slot capacities to the count it had (the sticky slot-capacity hints);
 an overflow of a shrunken capacity re-dispatches at the configured one.
 
-Not ported yet (ROADMAP.md): the sharded path (``attach_mesh`` raises) and
-the JAX package's AOT program cache and packed bucketed fetch.
+With a mesh attached (``Context.attach_mesh``), both paths run the
+program on every shard of the mesh instead (``_run_sharded``): the event
+axis padded to the shard multiple, each shard's stages and slot
+compaction on its device, the shards fetched and joined in shard order,
+with no capacity hint (as in the JAX package, which also skips the
+compaction there; the tables are the same).
+
+Not ported (ROADMAP.md): the JAX package's AOT program cache and packed
+bucketed fetch.
 """
 
 from __future__ import annotations
@@ -37,7 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from waveformanalysis_tpu_torch.device import to_device
+from waveformanalysis_tpu_torch.device import on_device, to_device
+from waveformanalysis_tpu_torch.parallel.mesh import pad_to_shards
 from waveformanalysis_tpu_torch.storage.cache_ops import HINT_SUFFIX
 from waveformanalysis_tpu_torch.ops.compact import (
     compact_slots,
@@ -338,7 +346,6 @@ class WaveChainFusion:
                 meta["board"], meta["channel"],
             )
 
-        dev = ctx.device
         inputs = (
             waves,  # a host array or a device-resident tensor
             lengths.astype(np.int32),
@@ -346,6 +353,42 @@ class WaveChainFusion:
             meta["baseline"].astype(np.float32),
             thresholds,
         )
+        mesh_info = ctx.mesh
+        if mesh_info is not None:
+            host_out, slot_out = self._run_sharded(
+                ctx, device_members, cfgs, plugins, support_hit_cfg, inputs,
+                n, mesh_info, "fusion.single",
+            )
+        else:
+            host_out, slot_out = self._run_one_device(
+                ctx, run_id, device_members, cfgs, plugins, support_hit_cfg,
+                inputs, n,
+            )
+
+        results: Dict[str, Any] = {}
+        with ctx.profiler.time("fusion.single.finalize"):
+            for m in device_members:
+                results[m] = self._finalize_member(
+                    ctx, m, plugins, cfgs, support_hit_cfg, host_out,
+                    slot_out, meta, lengths, n, bf_baselines=bf_baselines,
+                )
+            self._finalize_host_members(
+                ctx, run_id, host_members, plugins, cfgs, results
+            )
+        logger.debug(
+            "fused %s over %d waveforms in one device program", members, n
+        )
+        return results
+
+    def _run_one_device(
+        self, ctx: Any, run_id: str, device_members: List[str], cfgs: Dict,
+        plugins: Dict, support_hit_cfg, inputs: Tuple, n: int,
+    ):
+        """The single-run program on the Context's device: the capacity
+        hints, the upload, the stages, the device compaction and the fetch
+        (again at the configured capacities after a stale hint). Returns
+        (host_out, slot_out) as ``_fetch`` does."""
+        dev = ctx.device
         hinted = self._apply_capacity_hints(
             ctx, run_id, device_members, cfgs, support_hit_cfg, n
         )
@@ -390,21 +433,79 @@ class WaveChainFusion:
                     cfg[_SLOT_OVERFLOW[m][1]] = orig
             hinted = {}
         self._record_capacity_hints(ctx, run_id, host_out, n)
+        return host_out, slot_out
 
-        results: Dict[str, Any] = {}
-        with ctx.profiler.time("fusion.single.finalize"):
-            for m in device_members:
-                results[m] = self._finalize_member(
-                    ctx, m, plugins, cfgs, support_hit_cfg, host_out,
-                    slot_out, meta, lengths, n, bf_baselines=bf_baselines,
-                )
-            self._finalize_host_members(
-                ctx, run_id, host_members, plugins, cfgs, results
-            )
-        logger.debug(
-            "fused %s over %d waveforms in one device program", members, n
-        )
-        return results
+    def _run_sharded(
+        self, ctx: Any, device_members: List[str], cfgs: Dict, plugins: Dict,
+        support_hit_cfg, inputs: Tuple, n: int, mesh_info, phase: str,
+    ):
+        """The program on every shard of the attached mesh: the event axis
+        padded to the shard multiple, each shard's rows on its device, every
+        device stage and the slot compaction there (each kernel launches
+        once a shard), each shard fetched and the shards joined in shard
+        order on the host (slot rows rebased by the shard's first row), the
+        padding cut. Returns (host_out, slot_out) as ``_fetch`` does for n
+        rows, with per-event overflow vectors as the batched path has them.
+
+        Pad rows carry event_length 0 (no samples -> no features, no peaks,
+        no hits). As in the JAX package, the mesh program applies no
+        capacity hint.
+        """
+        mesh, axis = mesh_info
+        devs = mesh.shard_devices(axis)
+        m = pad_to_shards(n, len(devs)) // len(devs)
+
+        def rows(x, i: int, dev) -> torch.Tensor:
+            lo, hi = min(i * m, n), min((i + 1) * m, n)
+            part = x[lo:hi]
+            if not isinstance(part, torch.Tensor):  # a host slice, maybe of a read-only map
+                part = torch.from_numpy(np.require(part, requirements=["C", "W"]))
+            t = part.to(dev)
+            if hi - lo < m:
+                t = torch.cat([t, t.new_zeros((m - (hi - lo),) + tuple(t.shape[1:]))])
+            return t
+
+        with ctx.profiler.time(phase + ".upload"):
+            shard_in = [tuple(rows(x, i, dev) for x in inputs)
+                        for i, dev in enumerate(devs)]
+        with ctx.profiler.time(phase + ".device_program"):
+            outs = []
+            for dev, args in zip(devs, shard_in):
+                with on_device(dev):
+                    outs.append(self._run_stages(
+                        tuple(device_members), cfgs, plugins, support_hit_cfg, *args
+                    ))
+            # compacted once every shard's stages are queued: the compaction
+            # waits for its device to count the valid slots
+            shard_out = []
+            for dev, out in zip(devs, outs):
+                with on_device(dev):
+                    shard_out.append((out,) + self._compact(
+                        device_members, cfgs, support_hit_cfg, out,
+                        per_event_overflow=True,
+                    ))
+            del outs
+            for dev in dict.fromkeys(d for d in devs if d.type == "cuda"):
+                torch.cuda.synchronize(dev)  # the phase ends when the devices are done
+        del shard_in
+        with ctx.profiler.time(phase + ".fetch"):
+            fetched = [self._fetch(device_members, *o) for o in shard_out]
+            del shard_out
+            host_out = {
+                k: ({f: np.concatenate([h[k][f] for h, _ in fetched])[:n]
+                     for f in v} if isinstance(v, dict)
+                    else np.concatenate([h[k] for h, _ in fetched])[:n])
+                for k, v in fetched[0][0].items()
+            }
+            slot_out = {}
+            for mem, (_, fields) in fetched[0][1].items():
+                rows_ = np.concatenate(
+                    [s[mem][0] + i * m for i, (_, s) in enumerate(fetched)])
+                keep = rows_ < n
+                slot_out[mem] = (rows_[keep], {
+                    f: np.concatenate([s[mem][1][f] for _, s in fetched])[keep]
+                    for f in fields})
+        return host_out, slot_out
 
     @staticmethod
     def _support_hit_cfg(ctx: Any, device_members: List[str]):
@@ -685,10 +786,10 @@ class WaveChainFusion:
     @staticmethod
     def _member_overflow(host_out: Dict, m: str, offset: Optional[int],
                          n: int) -> int:
-        over = host_out[m + "__overflow"]
-        if offset is None:
-            return int(over)
-        return int(over[offset:offset + n].sum())
+        over = host_out[m + "__overflow"]  # a count, or per event (batched, mesh)
+        if offset is not None:
+            over = over[offset:offset + n]
+        return int(np.sum(over))
 
     @staticmethod
     def _finalize_host_members(
@@ -763,7 +864,9 @@ class WaveChainFusion:
         ``config["fused_batch_bucket"]`` (default 4096) with zero-length
         events (no samples -> no features, no peaks, no hits), and narrower
         runs are padded to the group's widest L. The capacity hints are not
-        applied here: the group runs at the configured capacities.
+        applied here: the group runs at the configured capacities. With a
+        mesh attached, the padded count is also a multiple of the shard
+        count and the group runs on every shard (``_run_sharded``).
         """
         out: Dict[str, Dict[str, Any]] = {}
 
@@ -881,6 +984,11 @@ class WaveChainFusion:
         total = sum(p["n"] for p in preps)
         bucket = int(ctx.config.get("fused_batch_bucket", 4096))
         padded = -(-total // bucket) * bucket if bucket > 1 else total
+        mesh_info = ctx.mesh
+        if mesh_info is not None:
+            # runs compose with event-axis sharding: the padded batch splits
+            # evenly over the shards
+            padded = pad_to_shards(padded, mesh_info[0].shape[mesh_info[1]])
 
         lengths = np.zeros((padded,), np.int32)  # padding: zero-length events
         sign = np.ones((padded,), np.float32)
@@ -898,26 +1006,35 @@ class WaveChainFusion:
             off += n
 
         dev = ctx.device
-        with ctx.profiler.time("fusion.batched.upload"):
-            dev_in = (self._batch_waves(preps, L, padded, dev),) + tuple(
-                to_device(x, dev) for x in (lengths, sign, baselines, thresholds)
+        if mesh_info is not None:
+            inputs = (self._batch_waves(preps, L, padded, dev), lengths, sign,
+                      baselines, thresholds)
+            host_out, slot_out = self._run_sharded(
+                ctx, device_members, cfgs, plugins, support_hit_cfg, inputs,
+                padded, mesh_info, "fusion.batched",
             )
-        with ctx.profiler.time("fusion.batched.device_program"):
-            out = self._run_stages(
-                tuple(device_members), cfgs, plugins, support_hit_cfg, *dev_in
-            )
-            compacted, counters = self._compact(
-                device_members, cfgs, support_hit_cfg, out,
-                per_event_overflow=True,
-            )
-            if dev.type == "cuda":  # the phase ends when the device is done
-                torch.cuda.synchronize(dev)
-        del dev_in
-        with ctx.profiler.time("fusion.batched.fetch"):
-            host_out, slot_out = self._fetch(
-                device_members, out, compacted, counters
-            )
-        del out, compacted, counters
+            del inputs
+        else:
+            with ctx.profiler.time("fusion.batched.upload"):
+                dev_in = (self._batch_waves(preps, L, padded, dev),) + tuple(
+                    to_device(x, dev) for x in (lengths, sign, baselines, thresholds)
+                )
+            with ctx.profiler.time("fusion.batched.device_program"):
+                out = self._run_stages(
+                    tuple(device_members), cfgs, plugins, support_hit_cfg, *dev_in
+                )
+                compacted, counters = self._compact(
+                    device_members, cfgs, support_hit_cfg, out,
+                    per_event_overflow=True,
+                )
+                if dev.type == "cuda":  # the phase ends when the device is done
+                    torch.cuda.synchronize(dev)
+            del dev_in
+            with ctx.profiler.time("fusion.batched.fetch"):
+                host_out, slot_out = self._fetch(
+                    device_members, out, compacted, counters
+                )
+            del out, compacted, counters
 
         results_by_run: Dict[str, Dict[str, Any]] = {}
         with ctx.profiler.time("fusion.batched.finalize"):

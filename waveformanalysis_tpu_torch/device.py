@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from typing import Any, Union
 
 import numpy as np
@@ -65,3 +66,9 @@ def to_device(x: Any, device: torch.device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device)
     return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+
+def on_device(dev: torch.device):
+    """The context work on ``dev`` runs under: its CUDA device (so a kernel
+    launches there, on its current stream), else none."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else nullcontext()

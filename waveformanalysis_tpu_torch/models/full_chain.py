@@ -3,6 +3,9 @@
 Port of ``waveformanalysis_tpu/models/full_chain.py``. ``full_chain_step``
 composes the ported ops over a padded ``(n, L)`` batch and is the plain
 version that the CUDA chain kernel (``ops/chain_scan_cuda.py``) is held to.
+``make_sharded_chain`` runs it on every shard of a device mesh
+(``parallel/``); label counts, total area and the overflow counters are
+summed over the shards.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from waveformanalysis_tpu_torch.ops.features import feature_reductions
 from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
 from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch, peak_heights_batch
 from waveformanalysis_tpu_torch.ops.widths import width_from_peaks
+from waveformanalysis_tpu_torch.parallel.scan import make_sharded_pipeline
 
 Batch = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -244,6 +248,32 @@ def make_chain(cfg: Optional[ChainConfig] = None):
         return full_chain_step(waves, event_length, baselines, polarity_codes, cfg)
 
     return step
+
+
+def sharded_chain(mesh: Any, step, axis: str = "data"):
+    """``step`` (a chain step function of the four batch tensors) on every
+    shard of ``mesh``'s ``axis``: per-event outputs come back as
+    ShardedTensors, ``n_s1`` / ``n_s2`` (int32), ``total_area`` (float32,
+    each shard's sum, then the sum over shards) and the overflow counters
+    summed over the shards. The event count must be a multiple of the shard
+    count."""
+
+    def local(waves, event_length, baselines, polarity_codes):
+        out = step(waves, event_length, baselines, polarity_codes)
+        out["n_s1"] = (out["label"] == 1).sum(dtype=torch.int32)
+        out["n_s2"] = (out["label"] == 2).sum(dtype=torch.int32)
+        out["total_area"] = out["area"].sum()
+        return out
+
+    stats = CHAIN_STATS_KEYS + CHAIN_OVERFLOW_KEYS
+    return make_sharded_pipeline(mesh, local, 4, CHAIN_OUT_KEYS + stats,
+                                 stats_keys=stats, axis_name=axis)
+
+
+def make_sharded_chain(mesh: Any, cfg: Optional[ChainConfig] = None, axis: str = "data"):
+    """The plain chain sharded over the event axis, with the run statistics
+    summed over the shards (the JAX package's ``psum``)."""
+    return sharded_chain(mesh, make_chain(cfg), axis)
 
 
 def example_chain_batch(

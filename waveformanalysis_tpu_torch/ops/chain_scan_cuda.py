@@ -5,7 +5,8 @@ Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
 - ``chain_scan_cuda`` / ``make_chain_scan`` (``csrc/chain_scan.cu``): the
   fused chain, the same 12 per-event outputs as ``full_chain_step``,
   ``label`` as int8, and the two int32 overflow scalars derived from the
-  raw per-event candidate/run counts;
+  raw per-event candidate/run counts; ``make_sharded_chain_scan`` runs it
+  on every shard of a device mesh;
 - ``find_peaks_scan`` (``csrc/peaks_scan.cu``): scipy-parity find_peaks,
   the contract of ``ops.peaks.find_peaks_batch`` without a neighbour
   threshold;
@@ -35,7 +36,11 @@ from typing import Dict, Optional
 import torch
 
 from waveformanalysis_tpu_torch.kernels._build import count_launch
-from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+from waveformanalysis_tpu_torch.models.full_chain import (
+    ChainConfig,
+    full_chain_step,
+    sharded_chain,
+)
 from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
 from waveformanalysis_tpu_torch.ops.peaks import find_peaks_batch
 from waveformanalysis_tpu_torch.ops.widths import _BASELINE_SAMPLES
@@ -216,6 +221,14 @@ def make_chain_scan(cfg: Optional[ChainConfig] = None):
         return chain_scan_cuda(waves, event_length, baselines, polarity_codes, cfg)
 
     return step
+
+
+def make_sharded_chain_scan(mesh, cfg: Optional[ChainConfig] = None, axis: str = "data"):
+    """The chain kernel K1 on every shard of ``mesh``'s ``axis``, each launch
+    on its shard's device (the counterpart of the JAX package's
+    make_sharded_chain_scan); the output contract of
+    ``models.full_chain.make_sharded_chain``."""
+    return sharded_chain(mesh, make_chain_scan(cfg), axis)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Port of ``waveformanalysis_tpu/ops/chain_pallas.py``: ``chain_tile_cuda`` /
 ``make_chain_tile`` (``csrc/chain_tile.cu``) take the place of
-``chain_pallas`` / ``make_jit_chain_pallas``. The contract is
+``chain_pallas`` / ``make_jit_chain_pallas``, and ``make_sharded_chain_tile``
+that of ``make_sharded_chain_pallas``. The contract is
 ``full_chain_step``'s: the same 12 per-event outputs, ``label`` as int8,
 and the two int32 overflow scalars derived from the raw per-event
 candidate / run counts.
@@ -27,7 +28,11 @@ from typing import Dict, Optional
 import torch
 
 from waveformanalysis_tpu_torch.kernels._build import count_launch
-from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+from waveformanalysis_tpu_torch.models.full_chain import (
+    ChainConfig,
+    full_chain_step,
+    sharded_chain,
+)
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     _OUTS,
     CHAIN_SLOT_BYTES,
@@ -184,3 +189,12 @@ def make_chain_tile(cfg: Optional[ChainConfig] = None, tile_rows: int = DEFAULT_
                                tile_rows=tile_rows)
 
     return step
+
+
+def make_sharded_chain_tile(mesh, cfg: Optional[ChainConfig] = None, axis: str = "data",
+                            tile_rows: int = DEFAULT_TILE_ROWS):
+    """The tile chain kernel K7 on every shard of ``mesh``'s ``axis``, each
+    launch on its shard's device (the counterpart of the JAX package's
+    make_sharded_chain_pallas); the output contract of
+    ``models.full_chain.make_sharded_chain``."""
+    return sharded_chain(mesh, make_chain_tile(cfg, tile_rows), axis)

@@ -8,8 +8,8 @@ tensors + host ``finalize`` — gets them DERIVED here (reference genericity
 bar: the chunk executor at
 waveform_analysis/core/plugins/core/streaming.py:740-880 is generic over
 every StreamingPlugin), so ``StreamingContext.get_stream(run, <static
-name>, executor_type="device")`` streams on the Context's device with no
-per-plugin code.
+name>, executor_type="device")`` streams on the Context's device (or its
+mesh, a chunk on each device) with no per-plugin code.
 
 Derivation per chunk:
 

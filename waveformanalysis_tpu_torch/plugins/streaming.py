@@ -18,9 +18,10 @@ Behavioral analog of the reference streaming engine
 Port of ``waveformanalysis_tpu/plugins/streaming.py``. Chunk compute is a
 device stage launched from the host, so "parallel" pipelines host prep
 against device execution (threads suffice: the kernels release the GIL).
-``executor_type="device"`` runs each chunk's device stage on the Context's
-device, one chunk at a time: the port has no mesh yet (ROADMAP.md Queue 1,
-item 7), which is the JAX executor on a one-device mesh.
+``executor_type="device"`` runs each chunk's device stage on a device:
+groups of chunks spread over the Context's mesh, one chunk a device, or
+one chunk at a time on the Context's device with no mesh attached.
+``merge_stream(backend="device")`` sorts on a mesh (``parallel/``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ from typing import Any, Dict, Generator, Iterable, Iterator, List, Optional, Tup
 
 import numpy as np
 
-from waveformanalysis_tpu_torch.device import to_device, to_numpy
+from waveformanalysis_tpu_torch.device import on_device, to_device, to_numpy
 from waveformanalysis_tpu_torch.dtypes import chunk as C
 from waveformanalysis_tpu_torch.dtypes.chunk import Chunk
 from waveformanalysis_tpu_torch.execution.manager import get_executor, is_picklable
@@ -112,8 +113,8 @@ class StreamingPlugin(Plugin):
     # device_stream_config / device_chunk_inputs / device_chunk_stage /
     # device_chunk_finalize hooks can run streaming_config
     # executor_type="device": each chunk's inputs go up to the Context's
-    # device and its stage runs there (the analog of the reference's chunk
-    # thread pool, reference:
+    # device (or a device of its mesh) and its stage runs there (the analog
+    # of the reference's chunk thread pool, reference:
     # waveform_analysis/core/plugins/core/streaming.py:740-880)
     device_parallel: bool = False
     options = {
@@ -261,20 +262,23 @@ class StreamingPlugin(Plugin):
         self, context: Any, run_id: str, chunks: Iterator[Chunk],
         cfg: StreamingConfig,
     ) -> Generator:
-        """Device chunk executor: each chunk's stage runs on the Context's
-        device, its finalize on the host.
+        """Device chunk executor: each group of ``n_shards`` chunks runs one
+        chunk on each device of the Context's mesh, their finalize on the
+        host, in chunk order.
 
         This is the production device path for the chunked streaming runtime
         (reference thread-pool analog: streaming.py:740-880): chunk windows,
         halo rows, break segmentation, main-window clipping and boundary
         validation are EXACTLY the host engine's (chunks come from the same
-        data_to_chunks), only the per-chunk compute moves to the device.
-        The JAX package groups ``n_shards`` chunks into one program over its
-        mesh; with no mesh here a group is one chunk, so no row is padded
-        and the stage's tensors are the chunk's own. A kernel's build or
+        data_to_chunks), only the per-chunk compute moves to the devices.
+        With no mesh attached a group is one chunk on the Context's device.
+        No row is padded: each stage's tensors are its chunk's own (a chunk
+        of no rows launches nothing and yields empty). A kernel's build or
         launch failure propagates.
         """
-        dev = context.device
+        mesh_info = context.mesh
+        devs = ([context.device] if mesh_info is None
+                else mesh_info[0].shard_devices(mesh_info[1]))
         kernel_cfg = self.device_stream_config(context)
         stage = type(self).device_chunk_stage
         timed = context.profiler.time
@@ -282,27 +286,32 @@ class StreamingPlugin(Plugin):
         while True:
             # host-clock phases: "chunks" is the input stream's own work
             # (the first chunk's includes the load and time sort of the
-            # input), "fetch" waits for the stage's device work
+            # input), "fetch" waits for the stages' device work
             with timed("stream.device.chunks"):
-                chunk = next(chunk_iter, None)
-            if chunk is None:
+                group = [c for _, c in zip(devs, chunk_iter)]
+            if not group:
                 return
             with timed("stream.device.inputs"):
-                inputs = self.device_chunk_inputs(context, run_id, chunk)
+                inputs = [self.device_chunk_inputs(context, run_id, c) for c in group]
             with timed("stream.device.upload"):
-                dev_inputs = {k: to_device(v, dev) for k, v in inputs.items()}
+                dev_inputs = [{k: to_device(v, dev) for k, v in d.items()}
+                              for d, dev in zip(inputs, devs)]
             with timed("stream.device.stage"):
-                out = stage(kernel_cfg, dev_inputs)
+                outs = []
+                for d, dev in zip(dev_inputs, devs):
+                    with on_device(dev):
+                        outs.append(stage(kernel_cfg, d))
             with timed("stream.device.fetch"):
-                host_out = {k: to_numpy(v) for k, v in out.items()}
-            del dev_inputs, out  # the device tensors go before the chunk is yielded
-            with timed("stream.device.finalize"):
-                result = self.device_chunk_finalize(context, run_id, chunk, host_out)
-                done = self._postprocess_result(chunk, result, cfg)
+                host_outs = [{k: to_numpy(v) for k, v in o.items()} for o in outs]
+            del dev_inputs, outs  # the device tensors go before a chunk is yielded
+            for chunk, host_out in zip(group, host_outs):
+                with timed("stream.device.finalize"):
+                    result = self.device_chunk_finalize(context, run_id, chunk, host_out)
+                    done = self._postprocess_result(chunk, result, cfg)
+                    if done is not None:
+                        self._validate_chunk(done)
                 if done is not None:
-                    self._validate_chunk(done)
-            if done is not None:
-                yield done
+                    yield done
 
     # -- post-processing -----------------------------------------------------------
 
@@ -543,24 +552,55 @@ class StreamingContext:
         backend:
           - ``host``: concat + stable host argsort (reference semantics,
             streaming.py:740-880 analog).
-          - ``device``: the JAX package's distributed merge over a mesh
-            (parallel/sorted_merge.py), not ported yet: it raises.
-          - ``auto``: host; the JAX package takes the device merge only for
-            a mesh of more than one device, and the port has no mesh.
+          - ``device``: shard the concatenated table over a mesh (``mesh``,
+            else one over every CUDA device) and run the distributed block
+            odd-even merge (parallel/sorted_merge.py).
+          - ``auto``: device when a mesh with >1 device is supplied,
+            host otherwise.
         """
-        if backend == "device" or (backend == "auto" and mesh is not None):
-            raise NotImplementedError(
-                "merge_stream(backend='device'): the sharded time sort "
-                "(parallel/sorted_merge.py) is not ported to the PyTorch "
-                "package yet (ROADMAP.md Queue 1, item 7)"
-            )
         parts = [c.data for c in stream if len(c) > 0]
         if not parts:
             return np.array([])
         merged = C._concat(parts)
         if not sort:
             return merged
+        use_device = backend == "device" or (
+            backend == "auto" and mesh is not None and mesh.size > 1
+        )
+        if use_device:
+            if mesh is None:
+                from waveformanalysis_tpu_torch.parallel.mesh import make_mesh
+
+                mesh = make_mesh()
+            return self._merge_sorted_on_mesh(merged, mesh)
         return C.sort_by_time(merged)
+
+    @staticmethod
+    def _merge_sorted_on_mesh(merged: Any, mesh: Any) -> Any:
+        """Distributed sort of a table by (time, record_id) on the mesh."""
+        from waveformanalysis_tpu_torch.dtypes.table import Table
+        from waveformanalysis_tpu_torch.parallel.sorted_merge import sharded_time_sort
+
+        tf = C.resolve_time_field(merged, C.TIME_FIELD)
+        if isinstance(merged, Table):
+            cols = {k: to_numpy(v) for k, v in merged.columns.items()}
+            names = merged.field_names
+            schema = merged.schema
+        elif isinstance(merged, np.ndarray) and merged.dtype.names:
+            cols = {k: np.ascontiguousarray(merged[k]) for k in merged.dtype.names}
+            names = merged.dtype.names
+            schema = None
+        else:
+            return C.sort_by_time(merged)
+        keys = [tf] + (["record_id"] if "record_id" in cols else [])
+        out_cols = sharded_time_sort(cols, keys, mesh, pad_key=tf)
+        if isinstance(merged, Table):
+            return Table({k: out_cols[k] for k in names}, schema=schema,
+                         validate=False)
+        out = np.zeros(len(out_cols[tf]), dtype=merged.dtype)
+        for k in names:
+            out[k] = out_cols[k]
+        return out
 
 
 def get_streaming_context(context: Any) -> StreamingContext:

@@ -14,9 +14,8 @@ single stable argsort of the timestamps when it provably realizes the
 full order, else ``np.lexsort``), then an O(total_samples) gather rebuilds
 the wave_pool. The sort can also run as torch ops on a device
 (:func:`records_sort_order_device`, backend ``device``); ``auto`` resolves
-to the host. The multi-device merge (``merge_records_parts(mesh=...)``)
-needs the sharded merge of ROADMAP.md Queue 1, item 7, and raises until
-then.
+to the host. ``merge_records_parts(mesh=...)`` sorts over a device mesh
+with the distributed block odd-even merge (``parallel/sorted_merge.py``).
 """
 
 from __future__ import annotations
@@ -236,26 +235,59 @@ def merge_records_parts(
     Vectorized replacement for the reference k-way heap merge
     (records_builder.py:870-948): concatenation + one sort + one gather.
 
-    A ``mesh`` of more than one device (an object with a ``shape`` mapping
-    of axis sizes, as the JAX package's) asks for the distributed merge,
-    which comes with ``parallel/sorted_merge.py`` (ROADMAP.md Queue 1,
-    item 7) and raises until then.
+    With ``mesh`` (a ``parallel.make_mesh`` Mesh of more than one device),
+    the global sort runs as the distributed block odd-even merge
+    (parallel/sorted_merge.py) sharded over the mesh. The wave_pool gather
+    stays on the host (ragged), matching the host path bit for bit.
     """
-    if mesh is not None and int(np.prod(list(mesh.shape.values()))) > 1:
-        raise NotImplementedError(
-            "merge_records_parts over a multi-device mesh needs the sharded "
-            "merge (parallel/sorted_merge.py), which is not ported yet "
-            "(ROADMAP.md Queue 1, item 7: multi-device)"
-        )
     parts = [p for p in parts if len(p.records) > 0]
     if not parts:
         return empty_bundle()
+    if mesh is not None and mesh.size > 1:
+        return _merge_records_parts_on_mesh(parts, mesh, profiler)
     if len(parts) == 1:
         return sort_bundle(parts[0], profiler=profiler)
 
     with _phase(profiler, "records.concat"):
         records, pool = _concat_rebased(parts)
     return sort_bundle(RecordsBundle(records=records, wave_pool=pool), profiler=profiler)
+
+
+def _merge_records_parts_on_mesh(
+    parts: Sequence[RecordsBundle], mesh: Any, profiler: Any = None
+) -> RecordsBundle:
+    """Distributed merge: global record order via the sharded block
+    odd-even merge, wave_pool gathered on the host.
+
+    Order contract identical to :func:`records_sort_order` -- primary
+    timestamp, then pid/board/channel, then input order (carried as an
+    explicit sequence key so the distributed sort is deterministic)."""
+    from waveformanalysis_tpu_torch.parallel.sorted_merge import sharded_time_sort
+
+    with _phase(profiler, "records.concat"):
+        records, pool = _concat_rebased(parts)
+    n = len(records)
+    cols = {k: np.asarray(records[k]) for k in records.field_names}
+    cols["_seq"] = np.arange(n, dtype=np.int64)
+    with _phase(profiler, "records.sort"):
+        sorted_cols = sharded_time_sort(
+            cols, ("timestamp", "pid", "board", "channel", "_seq"), mesh,
+        )
+    with _phase(profiler, "records.gather"):
+        out = Table(
+            {k: sorted_cols[k] for k in records.field_names},
+            schema=records.schema, validate=False,
+        )
+        new_pool, new_offsets = gather_pool(
+            pool,
+            np.asarray(sorted_cols["wave_offset"], dtype=np.int64),
+            np.asarray(sorted_cols["event_length"], dtype=np.int64),
+        )
+    out = out.with_columns(
+        wave_offset=new_offsets,
+        record_id=np.arange(n, dtype=np.int64),
+    )
+    return RecordsBundle(records=out, wave_pool=new_pool)
 
 
 def _concat_rebased(parts: Sequence[RecordsBundle]):
