@@ -91,7 +91,10 @@ version on the card, and drives the port's main paths:
   bit, memory flat) and ``get_data_batched`` on the mesh; the ``hit`` and
   ``signal_peaks_stream`` streams of the files on the mesh and
   ``merge_stream(backend="device")``; then the port's seventeen examples,
-  eight processes at a time.
+  eight processes at a time;
+- slice 15, ``models.pipeline``'s fused feature step (plain torch, no
+  kernel) on bench.py's waves with mixed polarity and ragged lengths, the
+  card's outputs against the CPU's.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -101,6 +104,11 @@ runs K1's warp passes on a float32 signal row, and the zero-phase filter
 (K5) reads and writes the event-major rows through a shared-memory tile;
 phase 3 holds K7 on rows too long for that row too, and K5 bit for bit on
 S = 1 to 6, odd n, L = 250, int16 input and rows too long for its tile.
+The one-direction filter (K6) walks the event-major rows in 128-sample
+chunks, forward or in reverse; phase 3 holds it bit for bit on S = 1, 3, 4
+and 6, odd n, rows of 251, 310 and 4,096 samples, and its two-pass
+composition bit for bit against K5, with no transposing copy or flip among
+its operations.
 Routes A and B also check that once get_data returns, no cached table
 holds a column on the card (the filtered waves come back as a host
 matrix).
@@ -2773,7 +2781,7 @@ def batched_injected_phase(dev, smi: str, kernels: dict, plugins) -> dict:
     return launches
 
 
-def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> dict:
+def batched_files_phase(dev, kernels: dict, daq: str, source: str) -> dict:
     """Slice 10 on the ingest route: N_BATCH_FILE_RUNS fresh run names
     linked to the ingest phase's VX2730 files (``source``, N_INGEST
     waveforms each) through ``get_data_batched(runs, INGEST_REQUEST)`` on
@@ -2781,7 +2789,7 @@ def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> 
     for the group, K2 once a run (``hit`` reads the SG-filtered waves, a
     standalone member as in the per-run route), nothing else; every table
     of the request equals per-run ``get_data`` on a second Context bit for
-    bit. Then per-run and batched again, one of each (P B); then
+    bit; the cold pair is timed. Then
     ``BatchProcessor(ctx, executor_type="device", on_error="raise")``
     computes df_events on fresh names through compute_many, and the thread
     executor with 2 workers counts every K2 launch of s1_s2 on two runs at
@@ -2790,8 +2798,6 @@ def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> 
     from waveformanalysis_tpu_torch.context.context import Context
     from waveformanalysis_tpu_torch.data.batch_processor import BatchProcessor
     from waveformanalysis_tpu_torch.plugins.plugin_sets import get_profile
-
-    n_wf = N_BATCH_FILE_RUNS * N_INGEST
 
     def names(tag: str, k: int = N_BATCH_FILE_RUNS) -> list:
         return [link_run(daq, source, f"bf_{tag}_{i}") for i in range(k)]
@@ -2831,22 +2837,6 @@ def batched_files_phase(dev, smi: str, kernels: dict, daq: str, source: str) -> 
               f"every table of {list(INGEST_COMPARED)} = per-run get_data on a second card "
               f"Context bit for bit; cold {cold:.3f} s (the per-run calls cold "
               f"{cold_per_run:.3f} s)", flush=True)
-
-        order = ("P", "B")  # one of each after the cold pair (depth cut for phase 5m)
-
-        def call(i, kind):
-            rids = names(f"t{i}")
-            if kind == "B":
-                ctx.get_data_batched(rids, INGEST_REQUEST)
-            else:
-                for rid in rids:
-                    ctx.get_data(rid, INGEST_REQUEST)
-
-        rec = timed_turns(ctx, order, call)
-        print(f"route batched files {N_BATCH_FILE_RUNS}x{N_INGEST}x{WAVE_LEN} ({smi}), in turns "
-              f"{''.join(order)} after the cold pair: batched {turns_line(rec['B'], n_wf)}; "
-              f"per-run x{N_BATCH_FILE_RUNS} {turns_line(rec['P'], n_wf)}; memory allocated "
-              f"after each call {rec['held']} B", flush=True)
 
         rids = names("bp")
         ctx.profiler.reset()
@@ -3277,7 +3267,40 @@ def main() -> None:
                                      f"{'tile' if lay.staged else 'long rows'}")
     print(f"parity sosfiltfilt: {len(filter_cases)} cases bit-equal to sosfiltfilt_plain: "
           f"{'; '.join(parity['sosfiltfilt'])}", flush=True)
-    del long_w
+    # K6 (one direction, forward and in reverse) against its plain version on
+    # the same event-major rows and state, bit-equal: route B's reflected
+    # rows at n and n - 7 events, rows of 251 samples (no multiple of the
+    # 128-sample chunk), S = 1, 3, 4 and 6, and 2,053 x 4,096 rows
+    rng6 = np.random.default_rng(66)
+
+    def reflected(sos, x):
+        xc = x - flt.condition(x, sos)[0]
+        return flt.reflect(xc, flt.sosfiltfilt_padlen(sos))
+
+    long6 = torch.from_numpy(ragged_batch(2_053, FILTER_LONG_ROW, seed=6)[0]).to(dev).float()
+    k6_cases = [
+        ("route_b_reflected", designs["route_b"], reflected(designs["route_b"], x_main)),
+        ("route_b_n_minus_7", designs["route_b"], reflected(designs["route_b"], x_main[: n - 7])),
+        ("order1_T251_n_minus_7", designs["order1"], x_main[: n - 7, 5:].contiguous() - 1000.0),
+        ("order3_reflected", designs["order3"], reflected(designs["order3"], x_main)),
+        ("order6_reflected", designs["order6"], reflected(designs["order6"], x_main)),
+        (f"route_b_{FILTER_LONG_ROW}", designs["route_b"], long6 - 1000.0),
+    ]
+    for tag, sos, x in k6_cases:
+        zi = torch.as_tensor(rng6.normal(0, 20, (2 * sos.shape[0], x.shape[0])),
+                             dtype=torch.float32, device=dev)
+        for reverse in (False, True):
+            before = flc.sosfilt_cuda.launches
+            out = flc.sosfilt_cuda(x, sos, zi, reverse=reverse)
+            torch.cuda.synchronize()
+            check(flc.sosfilt_cuda.launches == before + 1, f"sosfilt {tag}: kernel not launched")
+            err = filter_equal(flt.sosfilt_plain(x, sos, zi, reverse=reverse), out,
+                               f"sosfilt {tag} reverse={reverse}")
+            max_err["sosfilt"] = max(max_err["sosfilt"], err)
+        parity["sosfilt"].append(f"{tag} {x.shape[0]}x{x.shape[1]} S={sos.shape[0]}")
+    print(f"parity sosfilt: {len(k6_cases)} cases, forward and reverse, bit-equal to "
+          f"sosfilt_plain: {'; '.join(parity['sosfilt'])}; {flc.sosfilt_layout(4)}", flush=True)
+    del long6, k6_cases
     sos = designs["route_b"]
     b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
     two = flc.sosfiltfilt_cuda(x_main, sos, fused=False)
@@ -3287,9 +3310,16 @@ def main() -> None:
     fused = flc.sosfiltfilt_cuda(x_main, sos)
     err = max(filter_equal(fused, two, "sosfilt two-pass vs fused"),
               filter_equal(flt.sosfiltfilt_plain(x_main, sos), two, "sosfilt two-pass vs plain"))
-    max_err["sosfilt"] = err
+    max_err["sosfilt"] = max(max_err["sosfilt"], err)
+    # the two-pass step's own operations: the reflection, K6 twice, the
+    # centre plus the DC response; no transposing copy and no flip
+    ops = step_ops(lambda: flc.sosfiltfilt_cuda(x_main, sos, fused=False))
+    moved = [k for k in ops["aten"] if k in ("aten::t", "aten::transpose", "aten::permute",
+                                             "aten::flip")]
+    check(not moved, f"the two-pass step ran {moved}")
     print(f"parity sosfilt two_pass_route_b: ok, K6 launched twice, bit-equal to K5 and the "
-          f"plain version", flush=True)
+          f"plain version; step ops at {n}x{L} (torch.profiler): device {ops['device']}; "
+          f"aten {ops['aten']}", flush=True)
     b5, b6 = flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches
     short = x_main[:, :20]  # L = 20 <= padlen 27: passes through
     out = flt.sosfiltfilt(short, sos)
@@ -3343,6 +3373,29 @@ def main() -> None:
           f"{list(fused_chain_demo.AGREE_KEYS)}; accuracy "
           f"{ {k: v['accuracy'] for k, v in demo['results'].items()} }", flush=True)
     del out, demo
+
+    # ---- phase 4p: models.pipeline (plain torch, no kernel) ----------------
+    # forward_step on bench.py's waves with mixed polarity and ragged valid
+    # lengths, on the card against the same step on the CPU: ints exact,
+    # f32 within atol 1e-3 / rtol 1e-4 (sums in another order)
+    from waveformanalysis_tpu_torch.models import pipeline as pipe
+
+    p_np = (main_np[0], ragged_np[1], ragged_np[3])
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    p_out = pipe.make_jit_step()(*(torch.from_numpy(a).to(dev) for a in p_np))
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - t0
+    got = {name: fn.launches for name, fn in kernels.items()}
+    check(not any(got.values()), f"models.pipeline launched kernels: {got}")
+    p_ref = pipe.forward_step(*(torch.from_numpy(a) for a in p_np), pipe.PipelineConfig())
+    p_err = compare(p_ref, p_out, "models.pipeline card vs CPU")
+    labels = p_out["label"].cpu()
+    print(f"models.pipeline forward_step on {n}x{L} (card = CPU, max |f32 diff| {p_err:.3g}; "
+          f"first call {p_wall * 1e3:.1f} ms): S1 {int((labels == 1).sum())}, S2 "
+          f"{int((labels == 2).sum())}, no kernel launched", flush=True)
+    del p_out, p_ref
 
     stamp("phases 4 and 4c")
 
@@ -3497,7 +3550,7 @@ def main() -> None:
                                          N_INGEST_CPU)
         del written
         stamp("phases 5c and 5f-5g (ingest, records)")
-        batched_file_launches = batched_files_phase(dev, smi, kernels, daq, "ingest3")
+        batched_file_launches = batched_files_phase(dev, kernels, daq, "ingest3")
         stamp("phase 5k (batched, files)")
         stream_launches = streaming_phase(dev, smi, kernels, daq, "ingest3", "cmp")
         torch.cuda.empty_cache()
@@ -3719,8 +3772,9 @@ def main() -> None:
     # L2) with their conditioning columns, then its wrapper step on the same
     # copies (the conditioning and the launch) and on int16 copies (the cast
     # too, as route B hands it the gathered st rows); the plain version on the
-    # same waves. K6 alone on time-major reflected copies, its wrapper and
-    # plain version. Route B's design and config 3's.
+    # same waves. K6 alone on the event-major reflected rows (forward; in
+    # reverse beside it), its wrapper and plain version. Route B's design and
+    # config 3's.
     lib_flt = flc._library()
     for size in (N_EVENTS, N_LARGE):
         w_e = [w_main.repeat(size // n, 1) + k for k in range(2)]
@@ -3748,20 +3802,24 @@ def main() -> None:
             t_k5b = median_ms(k5)
             t_p5 = median_ms(lambda k: flt.sosfiltfilt_plain(x_e[k % 2], sos), iters=3, warmup=1)
             xc = x_e[0] - cond[0][0]
-            ext_t = [flt.reflect(xc + k, padlen).t().contiguous() for k in range(2)]
+            ext = [flt.reflect(xc + k, padlen) for k in range(2)]  # event-major (size, Lp)
             del xc
-            zi = flt._zi_times(sos, ext_t[0][0])
-            y_t = torch.empty((Lp, size), device=dev)
+            zi = flt._zi_times(sos, ext[0][:, 0])
+            y6 = torch.empty((size, Lp), device=dev)
             prm6 = flc._SosParams(n=size, L=Lp, S=S, padlen=0)
 
-            def k6(k):
-                err = lib_flt.wfa_sosfilt(ext_t[k % 2].data_ptr(), zi.data_ptr(), coef.data_ptr(),
-                                          y_t.data_ptr(), ctypes.byref(prm6), stream)
-                check(err == 0, f"sosfilt kernel launch failed: cudaError {err}")
+            def k6(reverse):
+                def run(k):
+                    err = lib_flt.wfa_sosfilt(ext[k % 2].data_ptr(), zi.data_ptr(),
+                                              coef.data_ptr(), y6.data_ptr(), ctypes.byref(prm6),
+                                              int(reverse), stream)
+                    check(err == 0, f"sosfilt kernel launch failed: cudaError {err}")
+                return run
 
-            t_k6 = median_ms(k6)
-            t_w6 = median_ms(lambda k: flc.sosfilt_cuda(ext_t[k % 2], sos, zi))
-            t_p6 = median_ms(lambda k: flt.sosfilt_plain(ext_t[k % 2], sos, zi),
+            t_k6 = median_ms(k6(False))
+            t_k6r = median_ms(k6(True))
+            t_w6 = median_ms(lambda k: flc.sosfilt_cuda(ext[k % 2], sos, zi))
+            t_p6 = median_ms(lambda k: flt.sosfilt_plain(ext[k % 2], sos, zi),
                              iters=3, warmup=1)
             # bytes: each input read once, each output written once; work:
             # the float32 operations each kernel does (K5: sosfiltfilt_ops,
@@ -3769,7 +3827,7 @@ def main() -> None:
             # kernels are built with --fmad=false)
             b5 = bound_at(nbytes(x_e[0], *cond[0], out5), sosfiltfilt_ops(L, padlen, S) * size,
                           F32_NONFMA_OPS_PER_S)
-            b6 = bound_at(nbytes(ext_t[0], zi, y_t), Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
+            b6 = bound_at(nbytes(ext[0], zi, y6), Lp * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
             if dname == "route_b":  # the kernels' records: route B's design
                 times[("sosfiltfilt", size)], bounds[("sosfiltfilt", size)] = (t_k5, t_p5), b5
                 times[("sosfilt", size)], bounds[("sosfilt", size)] = (t_k6, t_p6), b6
@@ -3779,10 +3837,11 @@ def main() -> None:
                   f"{t_w5:.3f}, on int16 rows (+ the cast) {t_i5:.3f}, plain sosfiltfilt_plain "
                   f"{t_p5:.3f}; bound {b5[0]:.4f} ms by {b5[1]} ({100 * b5[0] / t_k5:.1f} %); "
                   f"{lay5}; ptxas {ptxas('sosfilt')}", flush=True)
-            print(f"times sosfilt {size}x{Lp} {dname} ({smi}), median ms: kernel alone "
-                  f"{t_k6:.3f}, wrapper {t_w6:.3f}, plain sosfilt_plain {t_p6:.3f}; bound "
-                  f"{b6[0]:.4f} ms by {b6[1]} ({100 * b6[0] / t_k6:.1f} %)", flush=True)
-            del ext_t, zi, y_t, cond, out5
+            print(f"times sosfilt {size}x{Lp} {dname} event-major ({smi}), median ms: kernel "
+                  f"alone {t_k6:.3f} (reverse {t_k6r:.3f}), wrapper {t_w6:.3f}, plain "
+                  f"sosfilt_plain {t_p6:.3f}; bound {b6[0]:.4f} ms by {b6[1]} "
+                  f"({100 * b6[0] / t_k6:.1f} %); {flc.sosfilt_layout(S)}", flush=True)
+            del ext, zi, y6, cond, out5
         # the K5 step's own device and aten operations: the conditioning and
         # the kernel, no transposing copy
         if size == N_LARGE:
@@ -3794,6 +3853,26 @@ def main() -> None:
                   f"aten {ops['aten']}", flush=True)
         del w_e, x_e
         torch.cuda.empty_cache()
+
+    # rows too long for K5's tile: its long-row mode (a thread walking its row
+    # in a global scratch) beside the two-pass step (the reflection and K6
+    # twice, each in 128-sample chunks), both from the event-major rows, on
+    # cold copies in turns (long-row, two-pass, two-pass, long-row)
+    sos = designs["route_b"]
+    long_w = torch.from_numpy(make_batch(8_192, FILTER_LONG_ROW, seed=7)).to(dev)
+    x_long = [long_w.float().repeat(N_EVENTS // 8_192, 1) + k for k in range(2)]
+    del long_w
+    check(not flc.filter_layout(FILTER_LONG_ROW, flt.sosfiltfilt_padlen(sos)).staged,
+          "K5 stages 4,096-sample rows in its tile")
+    fused_step = lambda k: flc.sosfiltfilt_cuda(x_long[k % 2], sos)
+    two_step = lambda k: flc.sosfiltfilt_cuda(x_long[k % 2], sos, fused=False)
+    check(torch.equal(fused_step(0), two_step(0)), "long rows: two-pass differs from K5")
+    t_long = [median_ms(f) for f in (fused_step, two_step, two_step, fused_step)]
+    print(f"times long rows {N_EVENTS}x{FILTER_LONG_ROW} route_b ({smi}), median ms in turns: "
+          f"K5 long-row step {t_long[0]:.3f} / {t_long[3]:.3f}, two-pass step "
+          f"{t_long[1]:.3f} / {t_long[2]:.3f} (bit-equal)", flush=True)
+    del x_long
+    torch.cuda.empty_cache()
 
     stamp("phase 6 (kernel times)")
 

@@ -3,6 +3,7 @@
 kernels, on one NVIDIA GPU.
 
     python3 scripts/scan_kernel_turns.py --parent DIR [--kernels K5,K7]
+    python3 scripts/scan_kernel_turns.py --parent DIR --kernels K6
 
 DIR holds an earlier version of ``waveformanalysis_tpu_torch/csrc`` whose
 named kernels keep the parameter and output structs this checkout uses:
@@ -18,6 +19,14 @@ named kernels keep the parameter and output structs this checkout uses:
   ``wfa_sosfiltfilt(x_t, coef, out_t, ends, params, stream)``; its step is
   that version's wrapper: the conditioning, the transposing subtraction,
   the launch and the transposing DC addition;
+- K6, one thread per event on the time-major reflected rows:
+  ``wfa_sosfilt(x_t, zi, coef, y_t, params, stream)``; its step is the
+  transposing copy of the event-major rows (flipped first in reverse), the
+  launch and the transposing copy back, as that version's wrappers did.
+  This checkout's K6 runs on the event-major rows, forward and in reverse.
+  Beside it, the zero-phase two-pass step (reflection, K6 forward, K6
+  backward, the centre plus the DC response) of each version, and K5 alone
+  against the same earlier build's K5, whose entry is this checkout's;
 - K7, the tile chain on the event-major int16 rows:
   ``wfa_chain_tile(waves, el, bl, pol, out, params, rows, vec, stream)``;
   its step is the output allocation, the launch and the overflow counts, as
@@ -69,7 +78,7 @@ K, L, N_BASE = 32, 256, 65_536
 PEAKS_KW = dict(height=80.0, prominence=50.0, width=2.0, distance=2, max_peaks=K)
 FRACS = (0.1, 0.9, 0.9, 0.1)
 SOURCES = {"K1": "chain_scan", "K2": "peaks_scan", "K3": "hits_scan", "K4": "width_scan",
-           "K5": "sosfilt", "K7": "chain_tile"}
+           "K5": "sosfilt", "K6": "sosfilt", "K7": "chain_tile"}
 ROUTE_B_DESIGN = (4, 0.002, 0.1, 0.5)  # chip_smoke.FILTER_DESIGNS["route_b"]
 # K7's rows at longer L, 512 MB of int16 waves each: (L, events); tile_layout
 # keeps the float row at 1,024 and drops it at 4,096 (8 warps a block)
@@ -108,7 +117,8 @@ def main() -> None:
     ap.add_argument("--kernels", default="K1,K2,K3,K4",
                     help="comma-separated kernels to time: K1 (chain), K2 (find_peaks), "
                          "K3 (threshold hits), K4 (width crossings), K5 (zero-phase "
-                         "Butterworth), K7 (tile chain)")
+                         "Butterworth), K6 (one-direction Butterworth, with the two-pass "
+                         "step and K5 beside it), K7 (tile chain)")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     check(set(kernels) <= set(SOURCES), f"--kernels takes {sorted(SOURCES)}")
@@ -139,6 +149,10 @@ def main() -> None:
         old["K4"].wfa_width_scan.argtypes = [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
     if "K5" in old:
         old["K5"].wfa_sosfiltfilt.argtypes = [ctypes.c_void_p] * 6
+    if "K6" in old:
+        old["K6"].wfa_sosfilt.argtypes = [ctypes.c_void_p] * 6
+        old["K6"].wfa_sosfiltfilt.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int,
+                                                                      ctypes.c_void_p]
     if "K7" in old:
         old["K7"].wfa_chain_tile.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
             ctypes.c_void_p]
@@ -423,12 +437,126 @@ def main() -> None:
                   f"{b5[1]}; tile {lay5}", flush=True)
             del x_e, cond, xc_t, out_t, ends, out
 
+        if "K6" in old:
+            sosfilt_turns(old["K6"], flc, flt, w, size, dev, stream)
+
         del w, sig
         torch.cuda.empty_cache()
 
     if "K7" in old:
         for L_long, n_long in LONG_ROWS:
             long_row_turns(make_batch, ctc, csc, bench_cfg, dev, stream, L_long, n_long)
+
+
+def sosfilt_turns(old_lib, flc, flt, w, size: int, dev, stream) -> None:
+    """K6 alone, forward and in reverse, the two-pass step and K5 alone, each
+    against the earlier build, in turns, on route B's design (reflected rows
+    of L + 2 padlen = 310 samples)."""
+    sos = flt.design_butterworth_sos(*ROUTE_B_DESIGN)
+    S, padlen = sos.shape[0], flt.sosfiltfilt_padlen(sos)
+    T = L + 2 * padlen
+    coef = flc.coefficient_table(sos, dev)
+    x_e = [w.float() + k for k in range(2)]  # cold event-major copies
+    cond = [flt.condition(x, sos) for x in x_e]
+    xc = [x - m for x, (m, _) in zip(x_e, cond)]
+    ext = [flt.reflect(x, padlen) for x in xc]  # event-major (n, T)
+    ext_t = [e.t().contiguous() for e in ext]  # the earlier kernel's time-major input
+    rev_t = [e.flip(0).contiguous() for e in ext_t]  # ... and its reversed input
+    zi = {False: flt._zi_times(sos, ext[0][:, 0]), True: flt._zi_times(sos, ext[0][:, -1])}
+    y = torch.empty((size, T), device=dev)
+    y_t = torch.empty((T, size), device=dev)
+    prm = flc._SosParams(n=size, L=T, S=S, padlen=0)
+    new = flc._library()
+
+    def old_k6(x_t, z, out):
+        check(old_lib.wfa_sosfilt(x_t.data_ptr(), z.data_ptr(), coef.data_ptr(),
+                                  out.data_ptr(), ctypes.byref(prm), stream) == 0,
+              "earlier sosfilt kernel")
+
+    def new_k6(x, z, out, reverse):
+        check(new.wfa_sosfilt(x.data_ptr(), z.data_ptr(), coef.data_ptr(), out.data_ptr(),
+                              ctypes.byref(prm), int(reverse), stream) == 0, "sosfilt kernel")
+
+    # the versions agree bit for bit before they are timed
+    for reverse in (False, True):
+        old_k6(rev_t[0] if reverse else ext_t[0], zi[reverse], y_t)
+        ref = y_t.flip(0).t() if reverse else y_t.t()
+        new_k6(ext[0], zi[reverse], y, reverse)
+        torch.cuda.synchronize()
+        check(torch.equal(y, ref), f"K6 reverse={reverse}: the new kernel differs from the "
+                                   f"earlier one")
+
+    def old_alone(reverse):
+        src = rev_t if reverse else ext_t
+        return lambda k: old_k6(src[k % 2], zi[reverse], y_t)
+
+    def new_alone(reverse):
+        return lambda k: new_k6(ext[k % 2], zi[reverse], y, reverse)
+
+    def old_step(reverse):
+        def run(k):
+            x = ext[k % 2]
+            x_t = (x.t().flip(0) if reverse else x.t()).contiguous()
+            out_t = torch.empty((T, size), device=dev)
+            old_k6(x_t, zi[reverse], out_t)
+            (out_t.flip(0) if reverse else out_t).t().contiguous()
+        return run
+
+    def new_step(reverse):
+        return lambda k: flc.sosfilt_cuda(ext[k % 2], sos, zi[reverse], reverse=reverse)
+
+    b6 = bound_at(nbytes(ext[0], zi[False], y), T * S * 9.0 * size, F32_NONFMA_OPS_PER_S)
+    for reverse in (False, True):
+        tag = "reverse" if reverse else "forward"
+        turns = in_turns(old_alone(reverse), new_alone(reverse), old_step(reverse),
+                         new_step(reverse))
+        print(f"K6 {size}x{T} route B design (S={S}) {tag}: {turns}; bound {b6[0]:.4f} ms by "
+              f"{b6[1]}; {flc.sosfilt_layout(S)}", flush=True)
+
+    def old_two_pass(k):
+        x = xc[k % 2]
+        left = 2.0 * x[:, :1] - x[:, 1:padlen + 1].flip(1)
+        right = 2.0 * x[:, -1:] - x[:, -padlen - 1:-1].flip(1)
+        e_t = torch.cat([left, x, right], dim=1).t().contiguous()
+        y1 = torch.empty_like(e_t)
+        old_k6(e_t, flt._zi_times(sos, e_t[0]), y1)
+        y_rev = y1.flip(0)
+        y2 = torch.empty_like(e_t)
+        old_k6(y_rev, flt._zi_times(sos, y_rev[0]), y2)
+        return (y2.flip(0)[padlen:padlen + L].t() + cond[k % 2][1]).contiguous()
+
+    def new_two_pass(k):
+        return flc._two_pass(xc[k % 2], cond[k % 2][1], sos, padlen)
+
+    check(torch.equal(old_two_pass(0), new_two_pass(0)), "two-pass steps differ")
+    t = [median_ms(f) for f in (old_two_pass, new_two_pass, new_two_pass, old_two_pass)]
+    print(f"two-pass step {size}x{L} route B design, in turns (earlier, new, new, earlier), "
+          f"ms: earlier {t[0]:.3f} / {t[3]:.3f}, new {t[1]:.3f} / {t[2]:.3f}", flush=True)
+
+    # K5 alone: this checkout's kernel against the earlier build's
+    out = torch.empty((size, L), device=dev)
+    prm5 = flc._SosParams(n=size, L=L, S=S, padlen=padlen)
+    lay5 = flc.filter_layout(L, padlen)
+
+    def k5(lib):
+        def run(k):
+            m, d = cond[k % 2]
+            check(lib.wfa_sosfiltfilt(x_e[k % 2].data_ptr(), m.data_ptr(), d.data_ptr(),
+                                      coef.data_ptr(), out.data_ptr(), None, ctypes.byref(prm5),
+                                      lay5.stride, stream) == 0, "sosfiltfilt kernel")
+        return run
+
+    k5(old_lib)(0)
+    ref5 = out.clone()
+    k5(new)(0)
+    torch.cuda.synchronize()
+    check(torch.equal(out, ref5), "K5: the new build differs from the earlier one")
+    t = [median_ms(k5(lib)) for lib in (old_lib, new, new, old_lib)]
+    b5 = bound_at(nbytes(x_e[0], out) + 8 * size, sosfiltfilt_ops(L, padlen, S) * size,
+                  F32_NONFMA_OPS_PER_S)
+    print(f"K5 {size}x{L} route B design alone, in turns (earlier, new, new, earlier), ms: "
+          f"earlier {t[0]:.3f} / {t[3]:.3f}, new {t[1]:.3f} / {t[2]:.3f}; bound "
+          f"{b5[0]:.4f} ms by {b5[1]}", flush=True)
 
 
 def long_row_turns(make_batch, ctc, csc, cfg, dev, stream, L_long: int, n: int) -> None:

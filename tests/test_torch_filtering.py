@@ -129,18 +129,75 @@ def test_sosfiltfilt_plain_against_pallas_xla_scipy(design, n, L, offset, bound)
     np.testing.assert_array_equal(TF.sosfiltfilt(torch.from_numpy(waves), sos).numpy(), out)
 
 
-def test_sosfilt_plain_against_pallas_timemajor():
-    """K6's contract: one direction, per-event initial state."""
+def _sosfilt_case():
+    """An order-3 design, 1,024 event-major rows of 120 samples (the Pallas
+    kernel takes n % 1024 == 0) and a random initial state."""
     sos = TF.design_butterworth_sos(*DESIGNS["order3"])
     rng = np.random.default_rng(7)
-    n, T, S = 1024, 120, sos.shape[0]  # the Pallas kernel takes n % 1024 == 0
-    ext_t = rng.normal(0, 50, (T, n)).astype(np.float32)
+    n, T, S = 1024, 120, sos.shape[0]
+    x = rng.normal(0, 50, (n, T)).astype(np.float32)
     zi = rng.normal(0, 20, (2 * S, n)).astype(np.float32)
-    ref = np.asarray(JP._sosfilt_pallas_timemajor(jnp.asarray(ext_t), sos, jnp.asarray(zi), True))
-    out = TC.sosfilt_cuda(torch.from_numpy(ext_t), sos, torch.from_numpy(zi)).numpy()
-    assert out.shape == (T, n) and out.dtype == np.float32
+    return sos, x, zi
+
+
+def test_sosfilt_plain_against_pallas_timemajor():
+    """K6's contract: one direction over the event-major (n, T) rows, per-event
+    initial state. The Pallas kernel takes the time-major (T, n) transpose
+    of the same rows; its output is transposed back."""
+    sos, x, zi = _sosfilt_case()
+    ref = np.asarray(JP._sosfilt_pallas_timemajor(jnp.asarray(x.T.copy()), sos, jnp.asarray(zi),
+                                                  True)).T
+    out = TC.sosfilt_cuda(torch.from_numpy(x), sos, torch.from_numpy(zi)).numpy()
+    assert out.shape == x.shape and out.dtype == np.float32
     print(f"sosfilt_plain vs Pallas: relative {_rel(out, ref):.3g}")
     assert _rel(out, ref) < 5e-5
+
+
+def test_sosfilt_plain_reverse_against_pallas_on_flipped_rows():
+    """K6's reverse contract: the cascade from the last sample to the first,
+    each output in place of its input, = the Pallas kernel on x[:, ::-1]
+    (time-major), flipped back."""
+    sos, x, zi = _sosfilt_case()
+    ref = np.asarray(JP._sosfilt_pallas_timemajor(jnp.asarray(x[:, ::-1].T.copy()), sos,
+                                                  jnp.asarray(zi), True)).T[:, ::-1]
+    out = TC.sosfilt_cuda(torch.from_numpy(x), sos, torch.from_numpy(zi), reverse=True).numpy()
+    assert out.shape == x.shape and out.dtype == np.float32
+    print(f"sosfilt_plain reverse vs Pallas: relative {_rel(out, ref):.3g}")
+    assert _rel(out, ref) < 5e-5
+
+
+@pytest.mark.parametrize("design", ["order1", "order2", "route_b", "order6"])
+@pytest.mark.parametrize("n,T", [(33, 45), (7, 310), (70, 1), (5, 64)])
+def test_sosfilt_plain_ragged_rows_and_reverse(design, n, T):
+    """The plain K6 on ragged n and on T no multiple of K6's 32-sample chunk
+    (and a one-sample row): forward = an independent float32 loop over
+    numpy rows in the kernel's operation order, bit for bit; reverse = the
+    forward cascade of the flipped rows, flipped back, bit for bit; the
+    wrapper on CPU tensors is the plain version."""
+    sos = TF.design_butterworth_sos(*DESIGNS[design])
+    rng = np.random.default_rng(n * T)
+    x = rng.normal(0, 50, (n, T)).astype(np.float32)
+    zi = rng.normal(0, 20, (2 * sos.shape[0], n)).astype(np.float32)
+    coef = TF.sos_coefficients(sos)[:, :5]
+    ref = np.empty_like(x)
+    z = zi.copy()
+    for t in range(T):
+        v = x[:, t]
+        for s, (b0, b1, b2, a1, a2) in enumerate(coef):
+            y = b0 * v + z[2 * s]
+            z[2 * s] = (b1 * v - a1 * y) + z[2 * s + 1]
+            z[2 * s + 1] = b2 * v - a2 * y
+            v = y
+        ref[:, t] = v
+    xt, zt = torch.from_numpy(x), torch.from_numpy(zi)
+    out = TF.sosfilt_plain(xt, sos, zt)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    rev = TF.sosfilt_plain(xt, sos, zt, reverse=True)
+    np.testing.assert_array_equal(
+        rev.numpy(), TF.sosfilt_plain(xt.flip(1).contiguous(), sos, zt).flip(1).numpy())
+    for reverse in (False, True):
+        assert torch.equal(TC.sosfilt_cuda(xt, sos, zt, reverse=reverse),
+                           rev if reverse else out)
 
 
 def test_two_pass_path_against_pallas_two_pass():
@@ -156,7 +213,71 @@ def test_two_pass_path_against_pallas_two_pass():
     x = torch.from_numpy(waves)
     mean, dc = TF.condition(x, sos)
     two = TC._two_pass(x - mean, dc, sos, padlen)
+    assert two.shape == x.shape and two.is_contiguous()
     assert _rel(two.numpy(), ref) < 5e-5
+    np.testing.assert_array_equal(two.numpy(), TF.sosfiltfilt_plain(x, sos).numpy())
+
+
+def test_two_pass_path_hands_over_event_major_rows(monkeypatch):
+    """The two-pass mode hands K6 the event-major (n, L + 2 padlen) rows: the
+    reflection forward, then the forward output in reverse, each with its
+    (2S, n) state; no (Lp, n) tensor is made and no
+    transpose, permute or flip runs. Checked with a stand-in library (the
+    plain K6 on the rows behind the pointers) on CPU tensors posing as CUDA
+    tensors; the result is sosfiltfilt_plain's bit for bit."""
+    import contextlib
+    import ctypes
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    sos = TF.design_butterworth_sos(*DESIGNS["route_b"])
+    padlen, S = TF.sosfiltfilt_padlen(sos), sos.shape[0]
+    n, L = 40, 250
+    Lp = L + 2 * padlen
+    x = torch.from_numpy(_waves(n, L))
+    calls, inside = [], []
+
+    def view(ptr, shape):
+        count = int(np.prod(shape))
+        return torch.from_numpy(np.ctypeslib.as_array(
+            (ctypes.c_float * count).from_address(ptr)).reshape(shape))
+
+    class Lib:
+        def wfa_sosfilt(self, xp, zip_, coef, yp, prm, reverse, stream):
+            P = prm._obj
+            calls.append(((P.n, P.L, P.S, P.padlen), reverse))
+            inside.append(True)  # the stand-in's own operations are not the wrapper's
+            xs, zs = view(xp, (P.n, P.L)), view(zip_, (2 * P.S, P.n))
+            view(yp, (P.n, P.L))[:] = TF.sosfilt_plain(xs.clone(), sos, zs.clone(), bool(reverse))
+            inside.pop()
+            return 0
+
+    class Stream:
+        cuda_stream = 0
+
+    ops = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = func(*args, **(kwargs or {}))
+            outs = res if isinstance(res, (tuple, list)) else (res,)
+            if not inside:
+                ops.append((str(func), [tuple(o.shape) for o in outs
+                                        if isinstance(o, torch.Tensor)]))
+            return res
+
+    monkeypatch.setattr(TC, "_library", Lib)
+    monkeypatch.setattr(TC, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    before = TC.sosfilt_cuda.launches
+    with Record():
+        two = TC.sosfiltfilt_cuda(x, sos, fused=False)
+    assert TC.sosfilt_cuda.launches == before + 2
+    assert calls == [((n, Lp, S, 0), 0), ((n, Lp, S, 0), 1)]
+    names = " ".join(name for name, _ in ops)
+    assert not any(w in names for w in ("transpose", "permute", "aten.t.", "flip")), names
+    assert (Lp, n) not in [sh for _, outs in ops for sh in outs]
     np.testing.assert_array_equal(two.numpy(), TF.sosfiltfilt_plain(x, sos).numpy())
 
 
@@ -195,6 +316,27 @@ def test_filter_layout_of_the_zero_phase_kernel():
     # five blocks of route B's rows fit an SM's 228 KB (1 KB a block is the
     # system's)
     assert 5 * (32 * 311 * 4 + 1024) <= 228 * 1024 < 6 * (32 * 311 * 4 + 1024)
+
+
+def test_sosfilt_layout_of_the_one_direction_kernel():
+    """K6's layout: whatever the row length, a block is one warp holding two
+    buffers of 32 rows of 129 words (chunks of 128 samples, an odd row
+    stride: 33,024 bytes); S > 4 adds the 2 S state words of its 32 events
+    (256 S bytes). Six such warps fit an SM's 228 KB (1 KB a block is the
+    system's); S with no room for one warp in a block's shared memory
+    (232,448 bytes) raises."""
+    assert (TC.SOSFILT_CHUNK, TC.SOSFILT_GROUP) == (128, 4)
+    for S in (1, 2, 3, 4):
+        assert TC.sosfilt_layout(S) == TC.SosfiltLayout(chunk=128, smem_bytes=33_024,
+                                                        warps_per_sm=6)
+    assert TC.sosfilt_layout(6) == TC.SosfiltLayout(128, 33_024 + 6 * 256, 6)
+    assert TC.sosfilt_layout(9).smem_bytes == 33_024 + 9 * 256
+    assert 6 * (33_024 + 1024) <= 228 * 1024 < 7 * (33_024 + 1024)
+    # the limit: 33,024 + 779 * 256 = 232,448 bytes fit, one more section does not
+    assert TC.sosfilt_layout(779) == TC.SosfiltLayout(128, 232_448, 1)
+    assert TC.SMEM_BYTES == 232_448
+    with pytest.raises(ValueError, match="780 sections"):
+        TC.sosfilt_layout(780)
 
 
 def test_zero_phase_kernel_bound_counts_its_operations():

@@ -190,7 +190,8 @@ def test_cpu_filter_calls_never_touch_loader(monkeypatch):
     np.testing.assert_array_equal(flt.sosfiltfilt_device(x.numpy(), sos, device="cpu"),
                                   outs[0].numpy())
     zi = torch.zeros((2 * sos.shape[0], 6))
-    assert flc.sosfilt_cuda(x.t().contiguous(), sos, zi).shape == (96, 6)
+    for reverse in (False, True):
+        assert flc.sosfilt_cuda(x, sos, zi, reverse=reverse).shape == (6, 96)
     assert flt.savgol(x, 11, 2).shape == x.shape
     assert (flc.sosfiltfilt_cuda.launches, flc.sosfilt_cuda.launches) == before
 
@@ -384,3 +385,31 @@ def test_filter_kernels_match_plain_on_card():
     assert torch.equal(flt.sosfiltfilt(short, flt.design_butterworth_sos(4, 0.002, 0.1, 0.5)),
                        short)
     assert flc.sosfiltfilt_cuda.launches == b5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 6, 9])
+def test_one_direction_kernel_matches_plain_on_card(order):
+    """K6 against sosfilt_plain on CUDA tensors, forward and in reverse,
+    bit for bit: 1,001 events (the last warp holds 9), rows of 45 samples
+    (no multiple of the 32-sample chunk), 310 (route B's reflected rows) and
+    4,096, a random initial state; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.ops import filter_cuda as flc
+    from waveformanalysis_tpu_torch.ops import filtering as flt
+
+    rng = np.random.default_rng(order)
+    sos = flt.design_butterworth_sos(order, 0.01, 0.2, 0.5)
+    n = 1_001
+    zi = torch.as_tensor(rng.normal(0, 20, (2 * sos.shape[0], n)), dtype=torch.float32,
+                         device="cuda")
+    for T in (45, 310, 4_096):
+        x = torch.as_tensor(rng.normal(0, 50, (n, T)), dtype=torch.float32, device="cuda")
+        for reverse in (False, True):
+            before = flc.sosfilt_cuda.launches
+            out = flc.sosfilt_cuda(x, sos, zi, reverse=reverse)
+            torch.cuda.synchronize()
+            assert flc.sosfilt_cuda.launches == before + 1
+            ref = flt.sosfilt_plain(x, sos, zi, reverse=reverse)
+            assert out.shape == (n, T) and torch.equal(out, ref), (T, reverse)

@@ -11,10 +11,12 @@ Port of ``waveformanalysis_tpu/ops/filter_pallas.py`` into ``csrc/sosfilt.cu``:
   the mean as it stages a row, reflects, runs the forward and backward
   cascades and adds the DC response as it stores. ``filter_layout`` says how
   the kernel holds the rows. With ``fused=False`` it runs the Pallas
-  two-pass path instead: reflection in torch, then K6 forward, a reversal,
-  K6 backward;
+  two-pass path instead on the event-major rows: the reflection in torch,
+  K6 forward, K6 in reverse over the forward output, the centre plus the DC
+  response (no transposing copy, no flip);
 - ``sosfilt_cuda`` (K6, ``wfa_sosfilt``, replacing ``_sosfilt_kernel``): one
-  cascade over a time-major (T, n) input with per-event initial state;
+  cascade over the event-major (n, T) rows with per-event initial state,
+  forward or in reverse; ``sosfilt_layout`` says how it holds the rows;
 - ``bandpass_filter``: ``bandpass_filter_pallas``, design and filter.
 
 The TPU path padded n to 1024/2048-event blocks; the kernels mask their
@@ -41,6 +43,11 @@ from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
     _devices,
     _scan_library,
 )
+from waveformanalysis_tpu_torch.ops.chain_tile_cuda import (
+    SM_BLOCK_RESERVED,
+    SM_BLOCKS,
+    SM_SMEM_BYTES,
+)
 
 
 class _SosParams(ctypes.Structure):
@@ -53,7 +60,7 @@ def _library() -> ctypes.CDLL:
     _scan_library("sosfilt", "wfa_sosfiltfilt",
                   [ptr] * 6 + [ctypes.POINTER(_SosParams), ctypes.c_int, ptr])
     return _scan_library("sosfilt", "wfa_sosfilt",
-                         [ptr, ptr, ptr, ptr, ctypes.POINTER(_SosParams), ptr])
+                         [ptr] * 4 + [ctypes.POINTER(_SosParams), ctypes.c_int, ptr])
 
 
 SOS_TILE_ROWS = 32  # K5's events (threads) per block: one warp (kTileRows)
@@ -87,6 +94,34 @@ def filter_layout(L: int, padlen: int) -> FilterLayout:
     return FilterLayout(stride, smem)
 
 
+SOSFILT_CHUNK = 128  # K6's samples of a row a warp holds at a time (kSosChunk)
+SOSFILT_GROUP = 4  # sections whose state K6 keeps in registers (kChunk)
+
+
+@dataclass(frozen=True)
+class SosfiltLayout:
+    """How K6 holds its rows (``csrc/sosfilt.cu``): a block is one warp of
+    32 events; the C entry computes the same shared memory from S."""
+
+    chunk: int  # samples of each row a warp copies and filters at a time
+    smem_bytes: int  # dynamic shared memory per block (one warp)
+    warps_per_sm: int  # warps (blocks) an SM's shared memory holds
+
+
+def sosfilt_layout(S: int) -> SosfiltLayout:
+    """K6's layout for S sections, whatever the row length: two buffers of
+    32 rows of ``SOSFILT_CHUNK + 1`` words (an odd row stride) and, for
+    S > SOSFILT_GROUP, the 2 S state words of each of the 32 events between
+    chunks (``sosfilt_words``). Raises where one warp's state does not fit
+    a block's shared memory."""
+    smem = 4 * (2 * 32 * (SOSFILT_CHUNK + 1) + (2 * S * 32 if S > SOSFILT_GROUP else 0))
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{S} sections: K6's buffers and state ({smem} bytes) exceed "
+                         f"a block's shared memory ({SMEM_BYTES} bytes)")
+    return SosfiltLayout(SOSFILT_CHUNK, smem,
+                         min(SM_BLOCKS, SM_SMEM_BYTES // (smem + SM_BLOCK_RESERVED)))
+
+
 _COEF: Dict[Tuple[bytes, str], torch.Tensor] = {}
 
 
@@ -103,31 +138,35 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def sosfilt_cuda(x_t: torch.Tensor, sos: np.ndarray, zi: torch.Tensor) -> torch.Tensor:
-    """One cascade over a time-major (T, n) float32 input from per-event
-    initial state ``zi`` (2S, n); returns (T, n) float32.
+def sosfilt_cuda(x: torch.Tensor, sos: np.ndarray, zi: torch.Tensor,
+                 reverse: bool = False) -> torch.Tensor:
+    """One cascade over the event-major (n, T) float32 rows from per-event
+    initial state ``zi`` (2S, n); returns (n, T) float32. ``reverse`` runs
+    each row from its last sample to its first and stores each output in
+    place of its input (``sosfilt(x.flip(1)).flip(1)`` without the flips).
 
     CUDA tensors launch K6; CPU tensors run ``ops.filtering.sosfilt_plain``.
     """
-    if _devices(x_t, zi) == "cpu":
-        return FLT.sosfilt_plain(x_t, sos, zi)
-    T, n = x_t.shape
+    if _devices(x, zi) == "cpu":
+        return FLT.sosfilt_plain(x, sos, zi, reverse)
+    n, T = x.shape
     S = int(np.asarray(sos).shape[0])
-    dev = x_t.device
-    _check(x_t, "x_t", torch.float32, (T, n), dev)
+    dev = x.device
+    _check(x, "x", torch.float32, (n, T), dev)
     _check(zi, "zi", torch.float32, (2 * S, n), dev)
+    sosfilt_layout(S)  # raises where S does not fit
     lib = _library()
     with torch.cuda.device(dev):
         coef = coefficient_table(sos, dev)
-        y_t = torch.empty_like(x_t)
+        y = torch.empty_like(x)
         prm = _SosParams(n=n, L=T, S=S, padlen=0)
-        err = lib.wfa_sosfilt(x_t.data_ptr(), zi.data_ptr(), coef.data_ptr(),
-                              y_t.data_ptr(), ctypes.byref(prm), _stream(dev))
+        err = lib.wfa_sosfilt(x.data_ptr(), zi.data_ptr(), coef.data_ptr(), y.data_ptr(),
+                              ctypes.byref(prm), int(reverse), _stream(dev))
     if err != 0:
         raise RuntimeError(f"sosfilt kernel launch failed: cudaError {err}")
     if n and T:
         count_launch(sosfilt_cuda)
-    return y_t
+    return y
 
 
 sosfilt_cuda.launches = 0  # kernel launches (not plain-version calls)
@@ -173,14 +212,18 @@ sosfiltfilt_cuda.launches = 0  # kernel launches (not plain-version calls)
 
 
 def _two_pass(xc: torch.Tensor, dc: torch.Tensor, sos: np.ndarray, padlen: int) -> torch.Tensor:
-    """The Pallas two-pass path (``_sosfiltfilt_pallas_jit(fused=False)``):
-    reflection in torch, K6 forward, reversal, K6 backward."""
+    """The Pallas two-pass path (``_sosfiltfilt_pallas_jit(fused=False)``)
+    on the event-major rows of the mean-removed batch ``xc``: the odd
+    reflection, K6 forward from ``zi * ext[:, 0]``, K6 in reverse from
+    ``zi * y[:, -1]``, the central L samples plus the DC response."""
     L = xc.shape[1]
-    ext_t = FLT.reflect(xc, padlen).t().contiguous()
-    y = sosfilt_cuda(ext_t, sos, FLT._zi_times(sos, ext_t[0]))
-    y_rev = y.flip(0)
-    y2 = sosfilt_cuda(y_rev, sos, FLT._zi_times(sos, y_rev[0])).flip(0)
-    return (y2[padlen:padlen + L].t() + dc).contiguous()
+    # the unit state of FLT._zi_times from the table already on the card (a
+    # host copy would make the host wait for the stream)
+    zi = coefficient_table(sos, xc.device)[:, 5:].reshape(-1, 1)
+    ext = FLT.reflect(xc, padlen)
+    y = sosfilt_cuda(ext, sos, zi * ext[:, 0])
+    y2 = sosfilt_cuda(y, sos, zi * y[:, -1], reverse=True)
+    return y2[:, padlen:padlen + L] + dc
 
 
 def bandpass_filter(

@@ -155,9 +155,15 @@ def condition(x: torch.Tensor, sos: np.ndarray) -> Tuple[torch.Tensor, torch.Ten
 
 
 def reflect(x: torch.Tensor, padlen: int) -> torch.Tensor:
-    """scipy's odd extension of an (n, L) batch to (n, L + 2 * padlen)."""
-    left = 2.0 * x[:, :1] - x[:, 1:padlen + 1].flip(1)
-    right = 2.0 * x[:, -1:] - x[:, -padlen - 1:-1].flip(1)
+    """scipy's odd extension of an (n, L) batch to (n, L + 2 * padlen):
+    ``2 x[0] - x[padlen..1]`` before the row and ``2 x[L-1] - x[L-2..]``
+    after it, the mirrored samples gathered by index (no flip)."""
+    L = x.shape[1]
+    mirror = torch.cat([torch.arange(padlen, 0, -1, device=x.device),
+                        torch.arange(L - 2, L - 2 - padlen, -1, device=x.device)])
+    ends = x.index_select(1, mirror)
+    left = 2.0 * x[:, :1] - ends[:, :padlen]
+    right = 2.0 * x[:, -1:] - ends[:, padlen:]
     return torch.cat([left, x, right], dim=1)
 
 
@@ -165,27 +171,33 @@ def reflect(x: torch.Tensor, padlen: int) -> torch.Tensor:
 # The plain versions of the IIR kernels
 # --------------------------------------------------------------------------
 
-def sosfilt_plain(x_t: torch.Tensor, sos: np.ndarray, zi: torch.Tensor) -> torch.Tensor:
-    """One direct-form-II-transposed cascade over a time-major (T, n)
-    float32 input with per-event initial state ``zi`` (2S, n) (rows z0, z1
-    of section 0, then of section 1, ...); returns (T, n).
+def sosfilt_plain(x: torch.Tensor, sos: np.ndarray, zi: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
+    """One direct-form-II-transposed cascade over the event-major (n, T)
+    float32 rows with per-event initial state ``zi`` (2S, n) (rows z0, z1
+    of section 0, then of section 1, ...); returns (n, T). ``reverse`` runs
+    each row from its last sample to its first, each output stored in place
+    of its input.
 
     Per sample and section, in this order: ``y = b0*x + z0``,
     ``z0 = (b1*x - a1*y) + z1``, ``z1 = b2*x - a2*y``; ``y`` feeds the next
     section. The contract of the K6 kernel (``ops.filter_cuda.sosfilt_cuda``).
+    The loop runs over a time-major copy, one (n,) step a sample.
     """
     coef = sos_coefficients(sos)[:, :5].tolist()  # exact float32 values
     z = list(zi.unbind(0))
-    y = torch.empty_like(x_t)
-    for t in range(x_t.shape[0]):
-        x = x_t[t]
+    x_t = x.t().contiguous()
+    y_t = torch.empty_like(x_t)
+    T = x_t.shape[0]
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        v = x_t[t]
         for s, (b0, b1, b2, a1, a2) in enumerate(coef):
-            ys = b0 * x + z[2 * s]
-            z[2 * s] = b1 * x - a1 * ys + z[2 * s + 1]
-            z[2 * s + 1] = b2 * x - a2 * ys
-            x = ys
-        y[t] = x
-    return y
+            ys = b0 * v + z[2 * s]
+            z[2 * s] = b1 * v - a1 * ys + z[2 * s + 1]
+            z[2 * s + 1] = b2 * v - a2 * ys
+            v = ys
+        y_t[t] = v
+    return y_t.t().contiguous()
 
 
 def _zi_times(sos: np.ndarray, first: torch.Tensor) -> torch.Tensor:
@@ -204,11 +216,10 @@ def sosfiltfilt_plain(x: torch.Tensor, sos: np.ndarray) -> torch.Tensor:
     mean, dc = condition(x, sos)
     padlen = sosfiltfilt_padlen(sos)
     L = x.shape[1]
-    ext_t = reflect(x - mean, padlen).t().contiguous()
-    y = sosfilt_plain(ext_t, sos, _zi_times(sos, ext_t[0]))
-    y_rev = y.flip(0)
-    y2 = sosfilt_plain(y_rev, sos, _zi_times(sos, y_rev[0])).flip(0)
-    return (y2[padlen:padlen + L].t() + dc).contiguous()
+    ext = reflect(x - mean, padlen)
+    y = sosfilt_plain(ext, sos, _zi_times(sos, ext[:, 0]))
+    y2 = sosfilt_plain(y, sos, _zi_times(sos, y[:, -1]), reverse=True)
+    return y2[:, padlen:padlen + L] + dc
 
 
 # --------------------------------------------------------------------------
