@@ -94,7 +94,11 @@ version on the card, and drives the port's main paths:
   eight processes at a time;
 - slice 15, ``models.pipeline``'s fused feature step (plain torch, no
   kernel) on bench.py's waves with mixed polarity and ragged lengths, the
-  card's outputs against the CPU's.
+  card's outputs against the CPU's;
+- slice 16, the port's tools: the random-config chain fuzz
+  (scripts/fuzz_chain_configs_torch.py, K1 and K7 against the plain chain
+  on 14 configs of 256 events) and the install check
+  (scripts/verify_install_torch.py) on the card.
 
 The chain (K1), find_peaks (K2), threshold-hit (K3) and width-crossing
 (K4) kernels run one warp per event on the event-major rows as well
@@ -2550,6 +2554,58 @@ EXAMPLE_WORKERS = 8  # example processes at once, one a core of the card's host
 # (each starts python, torch and a CUDA context)
 
 
+FUZZ_TRIALS, FUZZ_SEED = 14, 99  # the chain fuzz's defaults (256 events a trial)
+
+
+def tools_phase(kernels: dict) -> dict:
+    """Slice 16, the port's tools on the card: the random-config chain fuzz
+    (scripts/fuzz_chain_configs_torch.py: K1 and K7 against the plain
+    full_chain_step on FUZZ_TRIALS configs of 256 events, ints exact, f32
+    within ATOL / RTOL), with every kernel count set to 0 just before it,
+    then the install check (scripts/verify_install_torch.py) on the card.
+    Returns the fuzz's launches by kernel."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import fuzz_chain_configs_torch as fuzz
+    import verify_install_torch as verify
+
+    t0 = time.perf_counter()
+    for fn in kernels.values():
+        fn.launches = 0
+    results, log = [], io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = fuzz.main(["--device", "cuda", "--trials", str(FUZZ_TRIALS),
+                        "--seed", str(FUZZ_SEED)], results)
+    torch.cuda.synchronize()
+    got = {name: fn.launches for name, fn in kernels.items()}
+    fuzz_s = time.perf_counter() - t0
+    check(rc == 0 and len(results) == FUZZ_TRIALS
+          and all(r["status"] == fuzz.OK for r in results),
+          f"chain fuzz: exit {rc}, PORT MISMATCH:\n{log.getvalue()[-3000:]}")
+    check(got["chain_scan"] == got["chain_tile"] == FUZZ_TRIALS
+          and not any(v for k, v in got.items() if k not in ("chain_scan", "chain_tile")),
+          f"chain fuzz launches {got}, expected chain_scan and chain_tile "
+          f"{FUZZ_TRIALS} times each")
+    worst = max(r["worst"] for r in results)
+    t1 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = verify.main(["--device", "cuda"])
+    verify_s = time.perf_counter() - t1
+    text = log.getvalue()
+    check(rc == 0 and f"OK ({len(verify.CHECKS)} of {len(verify.CHECKS)} steps passed" in text,
+          f"verify_install_torch --device cuda: exit {rc}\n{text[-3000:]}")
+    lengths = sorted({r["L"] for r in results})
+    print(f"tools: chain fuzz {FUZZ_TRIALS} trials x 256 events (seed {FUZZ_SEED}, L in "
+          f"{lengths}): K1 and K7 = full_chain_step on every trial (max |f32 diff| "
+          f"{worst:.3g}), launches {got}, {fuzz_s:.2f} s; verify_install_torch --device cuda: "
+          f"{len(verify.CHECKS)} of {len(verify.CHECKS)} steps passed in {verify_s:.2f} s; "
+          f"phase {time.perf_counter() - t0:.2f} s", flush=True)
+    return got
+
+
 def examples_phase() -> None:
     """The port's examples as a user runs them (on the card by default):
     the records examples, the batched multi-run and streaming demos, the
@@ -3397,7 +3453,10 @@ def main() -> None:
           f"{int((labels == 2).sum())}, no kernel launched", flush=True)
     del p_out, p_ref
 
-    stamp("phases 4 and 4c")
+    # ---- phase 4t: slice 16, the port's tools (chain fuzz, install check) --
+    tool_launches = tools_phase(kernels)
+
+    stamp("phases 4, 4c and 4t")
 
     # ---- phase 5: main path of slice 2 (the Context route) ----------------
     route_kernels = ("peaks_scan", "hits_scan", "width_scan")
@@ -4051,6 +4110,8 @@ def main() -> None:
             "mesh_launches": {"chain_step": mesh_launches["chain_step"].get(name, 0),
                               **{s: got[name] for s, got in mesh_launches.items()
                                  if s != "chain_step"}},
+            # slice 16's chain fuzz: K1 and K7 once a trial
+            "tool_launches": {"fuzz": tool_launches[name]},
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

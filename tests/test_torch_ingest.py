@@ -85,15 +85,8 @@ def _contexts(tmp_path: Path, root: Path, adapter: str, plugin_config=None, **ex
 
 
 def _lineage(ctx, name):
-    """A data name's lineage without the plugin spec hashes: the hash folds
-    in the options' help strings, which some ported plugins word for the
-    port (the CUDA kernel backends)."""
-    def strip(node):
-        if isinstance(node, dict):
-            return {k: strip(v) for k, v in node.items() if k != "spec_hash"}
-        return node
-
-    return strip(ctx.get_lineage(name))
+    """A data name's whole lineage, plugin spec hashes included."""
+    return ctx.get_lineage(name)
 
 
 def _same_table(ref, out, tag):

@@ -138,6 +138,42 @@ def test_port_imports_without_jax():
     assert result["leaked"] == []
 
 
+TOOLS = ("assess_change_impact", "benchmark_io", "check_doc_sync", "fuzz_chain_configs",
+         "performance_regression_check", "scaffold_plugin", "schema_compat_check",
+         "verify_install")
+
+
+def test_port_tools_import_without_jax():
+    """Every scripts/*_torch.py imports with jax, jaxlib and the JAX package
+    blocked, and the fuzz's card path (K1 and K7 against the plain chain,
+    here on CPU tensors), the schema check and the install check run so:
+    only the fuzz's CPU reference needs JAX."""
+    assert sorted(p.name[:-len("_torch.py")] for p in (ROOT / "scripts").glob("*_torch.py")) \
+        == sorted(TOOLS)
+    code = (
+        "import contextlib, importlib, io, json, sys\n"
+        "for name in ('jax', 'jaxlib', 'waveformanalysis_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.path.insert(0, {str(ROOT / 'scripts')!r})\n"
+        f"tools = {{n: importlib.import_module(n + '_torch') for n in {TOOLS!r}}}\n"
+        "fuzz = tools['fuzz_chain_configs']\n"
+        "status = [fuzz.card_trial(a, f, 'cpu')['status']\n"
+        "          for _, _, a, f in fuzz.trials(2, 99, rows=slice(0, 16))]\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    rcs = [tools['schema_compat_check'].main([]),\n"
+        "           tools['verify_install'].main(['--device', 'cpu'])]\n"
+        "print(json.dumps({'status': status, 'rcs': rcs, 'leaked': sorted(m for m in\n"
+        "    sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'waveformanalysis_tpu')\n"
+        "    and sys.modules[m] is not None)}))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    result = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert result == {"status": ["OK", "OK"], "rcs": [0, 0], "leaked": []}
+
+
 def test_loader_names_nvcc_when_missing(monkeypatch, tmp_path):
     from waveformanalysis_tpu_torch.kernels import _build
 

@@ -1,7 +1,8 @@
 """Basic waveform features (height / amp / area / max_abs_diff).
 
 Port of ``waveformanalysis_tpu/ops/features.py`` (``feature_reductions``,
-``combine_features``, ``basic_features_device``, ``compute_baselines``):
+``combine_features``, ``basic_features_device``,
+``basic_features_from_waves``, ``compute_baselines``):
 the device performs only exact integer min/max/count/sum reductions over
 the padded ``(n, L)`` int16 matrix; the baseline arithmetic is combined on
 the host in float64 (``combine_features``) or, inside a device program, in
@@ -163,6 +164,50 @@ def basic_features_device(
         "area": area,
         "max_abs_diff": red["max_abs_diff"].to(f32),
     }
+
+
+def basic_features_from_waves(
+    waves: Any,
+    event_length: Any,
+    baselines: Any,
+    polarity_codes: Any,
+    height_range: Tuple[int, Optional[int]] = (0, None),
+    area_range: Tuple[int, Optional[int]] = (0, None),
+    host_combine: bool = True,
+    device: Union[str, torch.device, None] = "cuda",
+) -> Dict[str, np.ndarray]:
+    """End-to-end convenience: reductions on ``device`` + (default) exact
+    host combine."""
+    waves_np = np.ascontiguousarray(waves)
+    if waves_np.shape[1] >= 65536:
+        raise ValueError(
+            f"wave length {waves_np.shape[1]} >= 65536 would overflow the "
+            "exact int32 area accumulator"
+        )
+    dev = resolve_device(device)
+    waves_d = torch.from_numpy(waves_np).to(dev)
+    el = torch.from_numpy(np.asarray(event_length, dtype=np.int32)).to(dev)
+    hs, he = int(height_range[0]), height_range[1]
+    as_, ae = int(area_range[0]), area_range[1]
+    he = None if he is None else int(he)
+    ae = None if ae is None else int(ae)
+    # negative-index windows follow python slicing on the padded length
+    L = waves_d.shape[1]
+    hs, he2 = _norm_window(hs, he, L)
+    as2, ae2 = _norm_window(as_, ae, L)
+    if host_combine:
+        red = feature_reductions(
+            waves_d, el, height_start=hs, height_end=he2,
+            area_start=as2, area_end=ae2,
+        )
+        red = {k: v.cpu().numpy() for k, v in red.items()}
+        return combine_features(red, baselines, polarity_codes)
+    out = basic_features_device(
+        waves_d, el, torch.from_numpy(np.asarray(baselines)).to(dev),
+        torch.from_numpy(np.asarray(polarity_codes)).to(dev),
+        height_start=hs, height_end=he2, area_start=as2, area_end=ae2,
+    )
+    return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def _norm_window(start: int, end: Optional[int], L: int) -> Tuple[int, Optional[int]]:

@@ -7,7 +7,8 @@ per hit: position = argmax of the extended segment (first occurrence),
 height = that max, integral = sum(max(segment, 0)). Runs compact into a
 fixed (n, K) capacity; n_runs counts them all, so overflow is visible.
 ``compact_threshold_hits`` and ``threshold_columns_from_flat`` are the host
-(NumPy) helpers that turn run slot tables into THRESHOLD_HIT columns.
+(NumPy) helpers that turn run slot tables into THRESHOLD_HIT columns;
+``find_hit_runs`` is the host primitive for runs of a boolean mask.
 """
 
 from __future__ import annotations
@@ -162,3 +163,14 @@ def threshold_columns_from_flat(
         "channel": np.asarray(channels, dtype=np.int16)[rows],
         "record_id": np.asarray(record_ids, dtype=np.int64)[rows],
     }
+
+
+def find_hit_runs(mask: np.ndarray) -> tuple:
+    """Host primitive: (rows, starts, ends_exclusive) of contiguous True runs
+    per row (reference analog: event_grouping.py find_hits)."""
+    mask = np.asarray(mask, dtype=bool)
+    padded = np.pad(mask, ((0, 0), (1, 1)))
+    d = np.diff(padded.astype(np.int8), axis=1)
+    rows_s, starts = np.where(d == 1)
+    rows_e, ends = np.where(d == -1)
+    return rows_s, starts, ends

@@ -13,9 +13,13 @@ Port of ``waveformanalysis_tpu/ops/widths.py`` (``_width_for_positions``,
   q * total, side='left'), with the float32 prefix sums associated as the
   JAX package's XLA build on the CPU associates them (:func:`cumsum_xla`).
 
-The baseline is the window's sum divided by its count, as ``jnp.mean``
-computes it (torch's CUDA ``mean`` multiplies by 1/n, which can round
-differently).
+The baseline is the window's sum divided by its count, as the JAX
+package's Pallas chain kernel forms it, and the corrected row is wave
+minus that baseline. Neither torch's CUDA ``mean`` nor the JAX package's
+XLA chain is that: both multiply by 1/n, and XLA's CPU build may fuse the
+product into the subtraction (one fused multiply-add, depending on the
+shape), so on a row whose peak equals its baseline exactly the JAX XLA
+chain can find a positive peak where this and the Pallas kernel find 0.
 """
 
 from __future__ import annotations

@@ -170,8 +170,9 @@ class FilteredWaveformsPlugin(Plugin):
                               help="Accepted for API parity (device path ignores it)"),
         "batch_size": Option(default=0, type=int, track=False,
                              help="Events per filter batch (0 = whole channel)"),
+        # the JAX package's help text, word for word: it feeds `spec_hash` and so every lineage key
         "channel_config": Option(default=None, type=dict,
-                                 help="Per-(board,channel) overrides"),
+                                 help="Per-(board,channel) filter overrides"),
         "engine": Option(default="device", type=str, track=False,
                          choices=["device", "scipy"],
                          help="Kernel engine (perf knob, untracked)"),

@@ -51,7 +51,14 @@ THRESHOLD_HIT_DTYPE = THRESHOLD_HIT_SCHEMA.numpy_dtype()
 
 
 class ThresholdHitPlugin(Plugin):
-    """Threshold-only hit detector with THRESHOLD_HIT output."""
+    """Threshold-only hit detector with THRESHOLD_HIT output.
+
+    ``hits_backend`` on the port: ``scan`` runs the hand-written CUDA
+    threshold-run kernel (``ops/chain_scan_cuda.py::threshold_hits_scan``),
+    ``xla`` the plain PyTorch formulation (``ops/hits.py``), and ``auto``
+    picks ``scan`` on a CUDA device and ``xla`` on the CPU. The option's
+    help text is the JAX package's, kept for the lineage keys.
+    """
 
     provides = "hit_threshold"
     # outputs depend on run_config channel_metadata (hardware overrides)
@@ -77,12 +84,12 @@ class ThresholdHitPlugin(Plugin):
         "max_hits_per_waveform": Option(
             default=HT.DEFAULT_MAX_HITS, type=int, track=False,
             help="Fixed device capacity per waveform (perf knob)"),
+        # the JAX package's help text, word for word: it feeds `spec_hash` and so every lineage key
         "hits_backend": Option(
             default="auto", type=str, track=False,
             choices=["auto", "scan", "xla"],
-            help="threshold-run kernel: scan (the CUDA kernel) or xla (the "
-                 "plain PyTorch formulation); auto picks scan on a CUDA "
-                 "device and xla on the CPU"),
+            help="threshold-run kernel: streaming-scan Pallas (TPU) or XLA; "
+                 "auto picks scan on TPU"),
         "overflow_policy": Option(
             default="warn", type=str, track=False,
             choices=["warn", "raise", "ignore"],

@@ -78,7 +78,14 @@ def _normalize_threshold(value: Any):
 
 
 class HitFinderPlugin(Plugin):
-    """Detect peaks in waveforms and extract peak features."""
+    """Detect peaks in waveforms and extract peak features.
+
+    ``peaks_backend`` on the port: ``scan`` runs the hand-written CUDA
+    find_peaks kernel (``ops/chain_scan_cuda.py::find_peaks_scan``), ``xla``
+    the plain PyTorch formulation (``ops/peaks.py``), and ``auto`` picks
+    ``scan`` on a CUDA device and ``xla`` on the CPU. The option's help text
+    is the JAX package's, kept for the lineage keys.
+    """
 
     provides = "hit"
     depends_on = []  # dynamic
@@ -114,12 +121,12 @@ class HitFinderPlugin(Plugin):
         "max_peaks_per_waveform": Option(
             default=PK.DEFAULT_MAX_PEAKS, type=int, track=False,
             help="Fixed device capacity per waveform (perf knob)"),
+        # the JAX package's help text, word for word: it feeds `spec_hash` and so every lineage key
         "peaks_backend": Option(
             default="auto", type=str, track=False,
             choices=["auto", "scan", "xla"],
-            help="find_peaks kernel: scan (the CUDA kernel) or xla (the "
-                 "plain PyTorch formulation); auto picks scan on a CUDA "
-                 "device and xla on the CPU"),
+            help="find_peaks kernel: streaming-scan Pallas (TPU, ~3.5x) or "
+                 "XLA reductions; auto picks scan on TPU"),
         "overflow_policy": Option(
             default="warn", type=str, track=False,
             choices=["warn", "raise", "ignore"],

@@ -46,7 +46,14 @@ WAVEFORM_WIDTH_DTYPE = WAVEFORM_WIDTH_SCHEMA.numpy_dtype()
 
 
 class WaveformWidthPlugin(Plugin):
-    """Calculate rise/fall time based on peak detection results."""
+    """Calculate rise/fall time based on peak detection results.
+
+    ``width_backend`` on the port (fused path): ``scan`` runs the
+    hand-written CUDA width-crossing kernel (``ops/width_scan_cuda.py``),
+    ``xla`` the K x 4 masked reductions in plain PyTorch, and ``auto`` picks
+    ``scan`` on a CUDA device and ``xla`` on the CPU. The option's help text
+    is the JAX package's, kept for the lineage keys.
+    """
 
     provides = "waveform_width"
     depends_on = []  # dynamic
@@ -66,12 +73,13 @@ class WaveformWidthPlugin(Plugin):
         "fall_low": Option(default=0.1, type=float, help="Fall low fraction"),
         "interpolation": Option(default=True, type=bool,
                                 help="Linear interpolation at crossings"),
+        # the JAX package's help text, word for word: it feeds `spec_hash` and so every lineage key
         "width_backend": Option(
             default="auto", type=str, track=False,
-            help=("Fused-path slot-width kernel: auto (scan on a CUDA "
-                  "device, xla on the CPU), xla (K x 4 masked reductions "
-                  "in plain PyTorch), scan (the CUDA kernel, "
-                  "ops/width_scan_cuda.py). Untracked."),
+            help=("Fused-path slot-width kernel: auto (scan on TPU, xla "
+                  "elsewhere), xla (K x 4 masked reductions), scan "
+                  "(streaming Pallas walk, ops/width_scan_pallas.py). "
+                  "Outputs are bit-identical; untracked."),
         ),
     }
 
