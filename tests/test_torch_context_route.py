@@ -35,7 +35,6 @@ from waveformanalysis_tpu_torch.context.context import Context as TContext
 from waveformanalysis_tpu_torch.device import scan_backend
 from waveformanalysis_tpu_torch.dtypes.schema import ST_WAVEFORM_SCHEMA
 from waveformanalysis_tpu_torch.dtypes.table import Table
-from waveformanalysis_tpu_torch.foundation.profiler import Profiler
 from waveformanalysis_tpu_torch.ops import compact as tcompact
 from waveformanalysis_tpu_torch.ops import features as tfeat
 from waveformanalysis_tpu_torch.ops import widths as twidths
@@ -190,15 +189,6 @@ def test_table_device_columns():
     zeros = Table.zeros(3, ST_WAVEFORM_SCHEMA, device="cpu", wave_length=128)
     assert zeros["wave"].shape == (3, 128) and zeros["wave"].dtype == torch.int16
     assert isinstance(Table.zeros(0, ST_WAVEFORM_SCHEMA, wave_length=4)["wave"], np.ndarray)
-
-
-def test_profiler_sync_ignores_cpu_tensors(monkeypatch):
-    prof = Profiler(sync_device=True)
-    monkeypatch.setattr(torch.cuda, "synchronize",
-                        lambda *a: pytest.fail("synchronized for CPU tensors"))
-    with prof.time("x", result={"a": [torch.zeros(2)], "t": Table({"c": torch.ones(3)})}):
-        pass
-    assert prof.get("x")["count"] == 1
 
 
 def test_scan_backend_choice():

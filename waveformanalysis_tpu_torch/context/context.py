@@ -28,6 +28,7 @@ from __future__ import annotations
 import logging
 import tempfile
 import threading
+from contextlib import nullcontext
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple, Union
 
 import numpy as np
@@ -45,7 +46,7 @@ from waveformanalysis_tpu_torch.device import resolve_device
 from waveformanalysis_tpu_torch.dtypes.table import Table
 from waveformanalysis_tpu_torch.foundation.error import ErrorManager
 from waveformanalysis_tpu_torch.foundation.exceptions import ConfigError
-from waveformanalysis_tpu_torch.foundation.profiler import Profiler
+from waveformanalysis_tpu_torch.foundation.profiler import Profiler, current_request
 from waveformanalysis_tpu_torch.plugins.base import Plugin
 from waveformanalysis_tpu_torch.plugins.spec import PluginSpec
 from waveformanalysis_tpu_torch.plugins.stats import PluginStatsCollector
@@ -476,17 +477,22 @@ class Context:
         depth, and when the outermost returns, the device columns of the
         tables the request cached move to the host. Returns (result,
         {id(old table): host table})."""
-        with self._request_lock:
-            self._request_depth += 1
-        try:
-            out = fn(*args, **kwargs)
-        finally:
+        # the request span opens on this thread's outermost call only: a
+        # get_data made inside a plugin's compute stays in its request
+        span = (self.profiler.request("context.get_data") if not current_request()
+                else nullcontext())
+        with span:
             with self._request_lock:
-                self._request_depth -= 1
-                stored, outermost = self._request_stored, not self._request_depth
-                if outermost:
-                    self._request_stored = []
-            moved = self._release_device_columns(stored) if outermost else {}
+                self._request_depth += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                with self._request_lock:
+                    self._request_depth -= 1
+                    stored, outermost = self._request_stored, not self._request_depth
+                    if outermost:
+                        self._request_stored = []
+                moved = self._release_device_columns(stored) if outermost else {}
         return out, moved
 
     def _release_device_columns(self, keys: List[Tuple[str, str]]) -> Dict[int, Any]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
+from contextlib import nullcontext
 from typing import Any, Dict, Generator, List, Optional, Set
 
 import numpy as np
@@ -32,6 +33,7 @@ from waveformanalysis_tpu_torch.foundation.exceptions import (
     TimeoutError_,
     ValidationError,
 )
+from waveformanalysis_tpu_torch.foundation.profiler import adopt, handoff
 from waveformanalysis_tpu_torch.plugins.stats import estimate_mb
 
 logger = logging.getLogger(__name__)
@@ -110,9 +112,10 @@ class ExecutionDomain:
 
     def run_plugin(self, run_id: str, target: str, **kwargs: Any) -> Any:
         """Execute the plan for ``target``; returns the target's data."""
-        plan = self.resolve_execution_plan(target, run_id)
-        needed = self.compute_needed_set(plan, target, run_id)
-        fusion_bundles = self._plan_fusion(run_id, needed, kwargs)
+        with self.ctx.profiler.time("context.plan"):
+            plan = self.resolve_execution_plan(target, run_id)
+            needed = self.compute_needed_set(plan, target, run_id)
+            fusion_bundles = self._plan_fusion(run_id, needed, kwargs)
         fused_results: Dict[str, Any] = {}
         target_result = None
         target_ran = False
@@ -150,13 +153,14 @@ class ExecutionDomain:
         seen: Set[str] = set()
         plan: List[str] = []
         needed: Set[str] = set()
-        for target in targets:
-            for name in self.resolve_execution_plan(target, run_id):
-                if name not in seen:
-                    seen.add(name)
-                    plan.append(name)
-            needed |= self.compute_needed_set(plan, target, run_id)
-        fusion_bundles = self._plan_fusion(run_id, needed, kwargs)
+        with self.ctx.profiler.time("context.plan"):
+            for target in targets:
+                for name in self.resolve_execution_plan(target, run_id):
+                    if name not in seen:
+                        seen.add(name)
+                        plan.append(name)
+                needed |= self.compute_needed_set(plan, target, run_id)
+            fusion_bundles = self._plan_fusion(run_id, needed, kwargs)
         fused_results: Dict[str, Any] = {}
         results: Dict[str, Any] = {}
         target_set = set(targets)
@@ -204,19 +208,20 @@ class ExecutionDomain:
             else {rid: list(targets) for rid in run_ids}
         )
         run_info = []
-        for rid in run_ids:
-            ctx.config_domain.prepare_request(rid)
-            seen: Set[str] = set()
-            plan: List[str] = []
-            needed: Set[str] = set()
-            for target in per_run_targets[rid]:
-                for name in self.resolve_execution_plan(target, rid):
-                    if name not in seen:
-                        seen.add(name)
-                        plan.append(name)
-                needed |= self.compute_needed_set(plan, target, rid)
-            bundles = self._plan_fusion(rid, needed, kwargs, batched=True)
-            run_info.append((rid, plan, needed, bundles))
+        with ctx.profiler.time("context.plan"):
+            for rid in run_ids:
+                ctx.config_domain.prepare_request(rid)
+                seen: Set[str] = set()
+                plan: List[str] = []
+                needed: Set[str] = set()
+                for target in per_run_targets[rid]:
+                    for name in self.resolve_execution_plan(target, rid):
+                        if name not in seen:
+                            seen.add(name)
+                            plan.append(name)
+                    needed |= self.compute_needed_set(plan, target, rid)
+                bundles = self._plan_fusion(rid, needed, kwargs, batched=True)
+                run_info.append((rid, plan, needed, bundles))
 
         # hand each rule every run's member set in ONE call
         rule_runs: Dict[int, Any] = {}
@@ -320,13 +325,14 @@ class ExecutionDomain:
         error_msg = None
         result = None
         try:
-            key = ctx.cache_domain.key_for(run_id, name)
-            result, cache_hit = ctx._cache_manager.check_cache(run_id, name, key)
-            if cache_hit:
-                return result
+            with ctx.profiler.time(f"plugin.{name}.prepare"):
+                key = ctx.cache_domain.key_for(run_id, name)
+                result, cache_hit = ctx._cache_manager.check_cache(run_id, name, key)
+                if cache_hit:
+                    return result
 
-            self._validate_plugin_config(plugin)
-            self._validate_plugin_inputs(plugin, run_id)
+                self._validate_plugin_config(plugin)
+                self._validate_plugin_inputs(plugin, run_id)
             if precomputed is not None and name in precomputed:
                 # produced by a fused device program this run; still flows
                 # through the full contract/dtype/save pipeline below
@@ -341,10 +347,11 @@ class ExecutionDomain:
                 )
                 return result
 
-            result = self.postprocess_plugin_result(
-                run_id, name, plugin, result, is_target=is_target
-            )
-            ctx._set_data(run_id, name, result)
+            with ctx.profiler.time(f"plugin.{name}.postprocess"):
+                result = self.postprocess_plugin_result(
+                    run_id, name, plugin, result, is_target=is_target
+                )
+                ctx._set_data(run_id, name, result)
             return result
         except Exception as exc:
             success = False
@@ -404,10 +411,12 @@ class ExecutionDomain:
         if not timeout:
             return plugin.compute(self.ctx, run_id, **kwargs)
         box: Dict[str, Any] = {}
+        token = handoff()
 
         def runner() -> None:
             try:
-                box["result"] = plugin.compute(self.ctx, run_id, **kwargs)
+                with adopt(token):
+                    box["result"] = plugin.compute(self.ctx, run_id, **kwargs)
             except BaseException as e:  # noqa: BLE001
                 box["error"] = e
 
@@ -519,7 +528,8 @@ class ExecutionDomain:
                 for k in done:
                     _PENDING_SAVES.pop(k, None)
                 fut = self._save_pool.submit(
-                    self._write, key, storage, lineage, run_id, name, result
+                    self._write, key, storage, lineage, run_id, name, result,
+                    handoff(),
                 )
                 _PENDING_SAVES[reg_key] = fut
             return
@@ -546,20 +556,28 @@ class ExecutionDomain:
             fut.result()
 
     def _write(self, key: str, storage: Any, lineage: Any, run_id: str,
-               name: str, result: Any) -> None:
+               name: str, result: Any, token: Any = None) -> None:
+        """Save ``result`` under ``key`` and count the bytes the save added
+        to the cache as ``cache.bytes_written.<name>``. On the writer thread
+        ``token`` (the enqueuing thread's ``handoff()``) puts the span in the
+        request and under the span that enqueued it."""
         ctx = self.ctx
-        with ctx.profiler.time("context.save_cache"):
+        channels = isinstance(result, (list, tuple)) and all(
+            isinstance(r, np.ndarray) for r in result
+        )
+        # the legacy multi-channel layout: one entry per channel
+        keys = [f"{key}_ch{i}" for i in range(len(result))] if channels else [key]
+        sized = getattr(storage, "stored_bytes", None)
+        with adopt(token) if token else nullcontext(), ctx.profiler.time("context.save_cache"):
+            before = sum(sized(k, run_id) for k in keys) if sized else 0
             if _is_dataframe(result):
                 storage.save_dataframe(key, result, run_id=run_id, lineage=lineage)
             elif isinstance(result, (Table, np.ndarray)):
                 storage.save_memmap(key, result, run_id=run_id, lineage=lineage)
-            elif isinstance(result, (list, tuple)) and all(
-                isinstance(r, np.ndarray) for r in result
-            ):
-                # legacy multi-channel layout: one entry per channel
+            elif channels:
                 for i, arr in enumerate(result):
                     storage.save_memmap(
-                        f"{key}_ch{i}", arr, run_id=run_id, lineage=lineage,
+                        keys[i], arr, run_id=run_id, lineage=lineage,
                         extra_metadata={"channel_index": i, "channel_count": len(result)},
                     )
             else:
@@ -567,6 +585,10 @@ class ExecutionDomain:
                     "Result of '%s' (%s) is not persistable; skipping save",
                     name, type(result).__name__,
                 )
+                return
+            if sized:
+                ctx.profiler.count(f"cache.bytes_written.{name}",
+                                   sum(sized(k, run_id) for k in keys) - before)
 
     # -- streaming save-through ----------------------------------------------
 

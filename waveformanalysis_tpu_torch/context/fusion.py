@@ -44,7 +44,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from waveformanalysis_tpu_torch.device import on_device, to_device
+from waveformanalysis_tpu_torch.device import on_device, to_device, to_numpy
 from waveformanalysis_tpu_torch.parallel.mesh import pad_to_shards
 from waveformanalysis_tpu_torch.storage.cache_ops import HINT_SUFFIX
 from waveformanalysis_tpu_torch.ops.compact import (
@@ -332,27 +332,28 @@ class WaveChainFusion:
             return self._empty_results(members)
 
         # host preps (config machinery producing device inputs)
-        sign = np.where(meta["polarity"] > 0, 1.0, -1.0).astype(np.float32)
-        thresholds = np.zeros((n,), np.float32)
-        if "hit_threshold" in device_members:
-            thresholds = plugins["hit_threshold"].host_prep(
-                cfgs["hit_threshold"], ctx, run_id, meta
-            ).astype(np.float32)
-        bf_baselines = None
-        if "basic_features" in device_members:
-            bf_baselines = plugins["basic_features"].host_prep(
-                cfgs["basic_features"], ctx, run_id,
-                np.asarray(meta["baseline"], dtype=np.float64),
-                meta["board"], meta["channel"],
-            )
+        with ctx.profiler.time("fusion.single.prep"):
+            sign = np.where(meta["polarity"] > 0, 1.0, -1.0).astype(np.float32)
+            thresholds = np.zeros((n,), np.float32)
+            if "hit_threshold" in device_members:
+                thresholds = plugins["hit_threshold"].host_prep(
+                    cfgs["hit_threshold"], ctx, run_id, meta
+                ).astype(np.float32)
+            bf_baselines = None
+            if "basic_features" in device_members:
+                bf_baselines = plugins["basic_features"].host_prep(
+                    cfgs["basic_features"], ctx, run_id,
+                    np.asarray(meta["baseline"], dtype=np.float64),
+                    meta["board"], meta["channel"],
+                )
 
-        inputs = (
-            waves,  # a host array or a device-resident tensor
-            lengths.astype(np.int32),
-            sign,
-            meta["baseline"].astype(np.float32),
-            thresholds,
-        )
+            inputs = (
+                waves,  # a host array or a device-resident tensor
+                lengths.astype(np.int32),
+                sign,
+                meta["baseline"].astype(np.float32),
+                thresholds,
+            )
         mesh_info = ctx.mesh
         if mesh_info is not None:
             host_out, slot_out = self._run_sharded(
@@ -389,9 +390,10 @@ class WaveChainFusion:
         (again at the configured capacities after a stale hint). Returns
         (host_out, slot_out) as ``_fetch`` does."""
         dev = ctx.device
-        hinted = self._apply_capacity_hints(
-            ctx, run_id, device_members, cfgs, support_hit_cfg, n
-        )
+        with ctx.profiler.time("fusion.single.hints"):
+            hinted = self._apply_capacity_hints(
+                ctx, run_id, device_members, cfgs, support_hit_cfg, n
+            )
         with ctx.profiler.time("fusion.single.upload"):
             dev_in = tuple(to_device(x, dev) for x in inputs)
         while True:
@@ -432,7 +434,8 @@ class WaveChainFusion:
                 ):
                     cfg[_SLOT_OVERFLOW[m][1]] = orig
             hinted = {}
-        self._record_capacity_hints(ctx, run_id, host_out, n)
+        with ctx.profiler.time("fusion.single.hints"):
+            self._record_capacity_hints(ctx, run_id, host_out, n)
         return host_out, slot_out
 
     def _run_sharded(
@@ -460,7 +463,7 @@ class WaveChainFusion:
             part = x[lo:hi]
             if not isinstance(part, torch.Tensor):  # a host slice, maybe of a read-only map
                 part = torch.from_numpy(np.require(part, requirements=["C", "W"]))
-            t = part.to(dev)
+            t = to_device(part, dev)
             if hi - lo < m:
                 t = torch.cat([t, t.new_zeros((m - (hi - lo),) + tuple(t.shape[1:]))])
             return t
@@ -601,17 +604,17 @@ class WaveChainFusion:
         slot_out = {}
         for m, (mat, count, fields, dtypes) in compacted.items():
             slot_out[m] = decode_slot_matrix(
-                mat[:count].cpu().numpy(), fields, dtypes
+                to_numpy(mat[:count]), fields, dtypes
             )
         host_out: Dict[str, Any] = {}
         for m in device_members:
             if m not in _SLOT_FIELDS:
-                host_out[m] = {k: v.cpu().numpy() for k, v in out[m].items()}
+                host_out[m] = {k: to_numpy(v) for k, v in out[m].items()}
         scalars = [k for k, v in counters.items() if v.dim() == 0]
         if scalars:  # one copy for every scalar counter
             values = torch.stack([counters[k].to(torch.int64) for k in scalars])
-            host_out.update(zip(scalars, values.tolist()))
-        host_out.update({k: v.cpu().numpy() for k, v in counters.items()
+            host_out.update(zip(scalars, to_numpy(values).tolist()))
+        host_out.update({k: to_numpy(v) for k, v in counters.items()
                          if v.dim()})
         return host_out, slot_out
 
@@ -658,23 +661,28 @@ class WaveChainFusion:
     ) -> None:
         key = self._hint_key(ctx, run_id, member)
         self._hint_store(ctx)[key] = (observed, n)
-        try:
-            storage = ctx._get_storage_for_data_name(member)
-            storage.save_metadata(
-                key, {"max_slot_count": int(observed), "n_events": int(n)},
-                run_id,
-            )
-        except Exception as e:  # noqa: BLE001
-            logger.debug("capacity hint persist failed for %s: %s", key, e)
+        self._save_hint(ctx, run_id, member, key,
+                        {"max_slot_count": int(observed), "n_events": int(n)})
 
     def _drop_hint(self, ctx: Any, run_id: str, member: str) -> None:
         key = self._hint_key(ctx, run_id, member)
         self._hint_store(ctx)[key] = None
+        self._save_hint(ctx, run_id, member, key, {})
+
+    @staticmethod
+    def _save_hint(ctx: Any, run_id: str, member: str, key: str, meta: dict) -> None:
+        """Persist a hint beside the member's cache; its bytes count as the
+        member's (``cache.bytes_written.<member>``)."""
         try:
             storage = ctx._get_storage_for_data_name(member)
-            storage.save_metadata(key, {}, run_id)
-        except Exception:  # noqa: BLE001
-            pass
+            sized = getattr(storage, "stored_bytes", None)
+            before = sized(key, run_id) if sized else 0
+            storage.save_metadata(key, meta, run_id)
+            if sized:
+                ctx.profiler.count(f"cache.bytes_written.{member}",
+                                   sized(key, run_id) - before)
+        except Exception as e:  # noqa: BLE001 - a hint is never fatal
+            logger.debug("capacity hint persist failed for %s: %s", key, e)
 
     @staticmethod
     def _capacity_targets(m: str, device_members: List[str], cfgs: Dict,

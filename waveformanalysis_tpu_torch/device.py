@@ -8,6 +8,8 @@ from typing import Any, Union
 import numpy as np
 import torch
 
+from waveformanalysis_tpu_torch.foundation.profiler import count
+
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     """Return ``device`` as a ``torch.device``.
@@ -44,8 +46,11 @@ def scan_backend(choice: str, device: torch.device) -> str:
 
 
 def to_numpy(x: Any) -> np.ndarray:
-    """A host NumPy array from a tensor (any device) or array-like."""
+    """A host NumPy array from a tensor (any device) or array-like. A copy
+    from the card counts as ``device.d2h_bytes``."""
     if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            count("device.d2h_bytes", x.nbytes)
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -61,11 +66,13 @@ def to_host(data: Any) -> Any:
     return to_host_() if callable(to_host_) else data
 
 
-def to_device(x: Any, device: torch.device) -> torch.Tensor:
-    """A tensor on ``device`` from a tensor or a host array (copied)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device)
-    return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+def to_device(x: Any, device: Union[str, torch.device]) -> torch.Tensor:
+    """A tensor on ``device`` from a tensor or a host array (copied). A copy
+    from the host to the card counts as ``device.h2d_bytes``."""
+    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(x))
+    if not t.is_cuda and torch.device(device).type == "cuda":
+        count("device.h2d_bytes", t.nbytes)
+    return t.to(device)
 
 
 def on_device(dev: torch.device):

@@ -14,6 +14,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from waveformanalysis_tpu_torch.device import to_device as _upload
 from waveformanalysis_tpu_torch.device import to_numpy as _host
 from waveformanalysis_tpu_torch.dtypes.schema import (
     Field,
@@ -138,7 +139,7 @@ class Table:
         out = {}
         for k, v in self._columns.items():
             if isinstance(v, torch.Tensor):
-                out[k] = v.to(device)
+                out[k] = _upload(v, device)
                 continue
             arr = np.asarray(v)
             if arr.dtype.kind in ("U", "S", "O"):
@@ -150,7 +151,7 @@ class Table:
                     raise TypeError(
                         f"Column '{k}' has non-numeric dtype {arr.dtype} and no enum codec"
                     )
-            out[k] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+            out[k] = _upload(arr, device)
         return Table(out, schema=self.schema, validate=False)
 
     def to_host(self) -> "Table":
@@ -236,9 +237,7 @@ class Table:
         for f in schema.fields:
             shape = (n,) + f.resolve_shape(dims)
             if device is not None:
-                cols[f.name] = torch.from_numpy(
-                    np.zeros(shape, dtype=f.dev_dtype)
-                ).to(device)
+                cols[f.name] = _upload(np.zeros(shape, dtype=f.dev_dtype), device)
             else:
                 if f.enum:
                     cols[f.name] = np.zeros(shape, dtype=f.dev_dtype)
@@ -262,7 +261,7 @@ class Table:
             first = tables[0][k]
             if isinstance(first, torch.Tensor):
                 cols[k] = torch.cat(
-                    [torch.as_tensor(t[k]).to(first.device) for t in tables], dim=0
+                    [_upload(torch.as_tensor(t[k]), first.device) for t in tables], dim=0
                 )
             else:
                 cols[k] = np.concatenate([_host(t[k]) for t in tables], axis=0)

@@ -18,6 +18,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from waveformanalysis_tpu_torch.device import to_numpy
+
 
 def compact_slots(stage_out, fields: Sequence[str]):
     """Front-pack valid (n, K) slots into an (n*K, F+1) int32 matrix.
@@ -74,5 +76,5 @@ def compact_rows(
     """Compact on the device, copy only the valid rows to the host, decode."""
     mat, count = compact_slots(stage_out, fields)
     return decode_slot_matrix(
-        mat[:count].cpu().numpy(), fields, field_dtypes(stage_out, fields)
+        to_numpy(mat[:count]), fields, field_dtypes(stage_out, fields)
     )

@@ -25,6 +25,9 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 
+from waveformanalysis_tpu_torch.device import to_numpy
+from waveformanalysis_tpu_torch.foundation.profiler import span as _span
+
 KERNEL_VERSION = "grouping-v2"
 
 # The JAX package's threshold, kept so that ``auto`` picks the same backend
@@ -96,10 +99,10 @@ def _group_events_core(
     per-event t_min/t_max; None for an empty input.
     """
     time_window_ps = time_window_ns * 1e3
-    df_sorted = df.sort_values("timestamp").reset_index(drop=True)
-
-    ts_all = df_sorted["timestamp"].to_numpy()
-    ch_all = df_sorted["channel"].to_numpy()
+    with _span("grouping.sort"):
+        df_sorted = df.sort_values("timestamp").reset_index(drop=True)
+        ts_all = df_sorted["timestamp"].to_numpy()
+        ch_all = df_sorted["channel"].to_numpy()
     area_col = "area" if "area" in df_sorted.columns else "charge"
     height_col = "height" if "height" in df_sorted.columns else "peak"
     if area_col not in df_sorted.columns or height_col not in df_sorted.columns:
@@ -109,31 +112,32 @@ def _group_events_core(
     if n == 0:
         return None
 
-    if _resolve_backend(backend, n) == "device":
-        from waveformanalysis_tpu_torch.ops import grouping_device as GD
+    with _span("grouping.cluster"):
+        if _resolve_backend(backend, n) == "device":
+            from waveformanalysis_tpu_torch.ops import grouping_device as GD
 
-        eid = GD.anchor_window_event_ids(ts_all.astype(np.int64), time_window_ps,
-                                         device=device)
-        boundaries = GD.boundaries_from_event_ids(eid)
-    else:
-        boundaries = anchor_window_boundaries(ts_all.astype(np.int64), time_window_ps)
+            eid = GD.anchor_window_event_ids(ts_all.astype(np.int64), time_window_ps,
+                                             device=device)
+            boundaries = GD.boundaries_from_event_ids(eid)
+        else:
+            boundaries = anchor_window_boundaries(ts_all.astype(np.int64), time_window_ps)
     n_events = len(boundaries) - 1
-    event_of = np.repeat(np.arange(n_events), np.diff(boundaries))
-
-    # channel-sort inside clusters with ONE global lexsort
-    order = np.lexsort((ch_all, event_of))
-    return {
-        "boundaries": boundaries,
-        "n_events": n_events,
-        "event_of": event_of,  # already non-decreasing; order preserves it
-        "ts_sorted": ts_all,  # time-sorted (for reduceat aggregates)
-        "ts": ts_all[order],
-        "channel": ch_all[order],
-        "area": df_sorted[area_col].to_numpy()[order],
-        "height": df_sorted[height_col].to_numpy()[order],
-        "t_min": np.minimum.reduceat(ts_all, boundaries[:-1]),
-        "t_max": np.maximum.reduceat(ts_all, boundaries[:-1]),
-    }
+    with _span("grouping.gather"):
+        event_of = np.repeat(np.arange(n_events), np.diff(boundaries))
+        # channel-sort inside clusters with ONE global lexsort
+        order = np.lexsort((ch_all, event_of))
+        return {
+            "boundaries": boundaries,
+            "n_events": n_events,
+            "event_of": event_of,  # already non-decreasing; order preserves it
+            "ts_sorted": ts_all,  # time-sorted (for reduceat aggregates)
+            "ts": ts_all[order],
+            "channel": ch_all[order],
+            "area": df_sorted[area_col].to_numpy()[order],
+            "height": df_sorted[height_col].to_numpy()[order],
+            "t_min": np.minimum.reduceat(ts_all, boundaries[:-1]),
+            "t_max": np.maximum.reduceat(ts_all, boundaries[:-1]),
+        }
 
 
 def group_multi_channel_hits(
@@ -165,19 +169,20 @@ def group_multi_channel_hits(
     pairs = list(zip(bl[:-1], bl[1:]))
     t_mins, t_maxs = core["t_min"], core["t_max"]
 
-    return pd.DataFrame(
-        {
-            "event_id": np.arange(n_events, dtype=np.int64),
-            "t_min": t_mins.astype(np.int64),
-            "t_max": t_maxs.astype(np.int64),
-            "dt/ns": (t_maxs - t_mins) / 1e3,
-            "n_hits": np.diff(boundaries).astype(np.int32),
-            "channels": [core["channel"][lo:hi] for lo, hi in pairs],
-            "areas": [core["area"][lo:hi] for lo, hi in pairs],
-            "heights": [core["height"][lo:hi] for lo, hi in pairs],
-            "timestamps": [core["ts"][lo:hi] for lo, hi in pairs],
-        }
-    )
+    with _span("grouping.frame"):
+        return pd.DataFrame(
+            {
+                "event_id": np.arange(n_events, dtype=np.int64),
+                "t_min": t_mins.astype(np.int64),
+                "t_max": t_maxs.astype(np.int64),
+                "dt/ns": (t_maxs - t_mins) / 1e3,
+                "n_hits": np.diff(boundaries).astype(np.int32),
+                "channels": [core["channel"][lo:hi] for lo, hi in pairs],
+                "areas": [core["area"][lo:hi] for lo, hi in pairs],
+                "heights": [core["height"][lo:hi] for lo, hi in pairs],
+                "timestamps": [core["ts"][lo:hi] for lo, hi in pairs],
+            }
+        )
 
 
 def group_events_columnar(
@@ -269,118 +274,124 @@ def group_hit_windows(
     if missing:
         raise KeyError(f"hits missing required fields: {missing}")
 
-    timestamps = np.asarray(hits["timestamp"], dtype=np.int64)
-    positions = np.asarray(hits["position"], dtype=np.float64)
-    if dt_values is None:
-        if "dt" not in names:
-            raise KeyError("hits missing required field: dt")
-        dt_values = np.asarray(hits["dt"], dtype=np.int32)
-    else:
-        dt_values = np.asarray(dt_values, dtype=np.int32)
-    if np.any(dt_values <= 0):
-        raise ValueError("hit dt must be positive for every row")
+    with _span("grouping.windows"):
+        timestamps = np.asarray(hits["timestamp"], dtype=np.int64)
+        positions = np.asarray(hits["position"], dtype=np.float64)
+        if dt_values is None:
+            if "dt" not in names:
+                raise KeyError("hits missing required field: dt")
+            dt_values = np.asarray(hits["dt"], dtype=np.int32)
+        else:
+            dt_values = np.asarray(dt_values, dtype=np.int32)
+        if np.any(dt_values <= 0):
+            raise ValueError("hit dt must be positive for every row")
 
-    starts_rel = np.asarray(hits[s_name], dtype=np.int32)
-    ends_rel = np.asarray(hits[e_name], dtype=np.int32)
-    boards = np.asarray(hits["board"], dtype=np.int16)
-    channels = np.asarray(hits["channel"], dtype=np.int16)
-    heights = np.asarray(hits["height"], dtype=np.float32)
-    integrals = np.asarray(hits["integral"], dtype=np.float32)
-    record_ids = np.asarray(hits["record_id"], dtype=np.int64)
+        starts_rel = np.asarray(hits[s_name], dtype=np.int32)
+        ends_rel = np.asarray(hits[e_name], dtype=np.int32)
+        boards = np.asarray(hits["board"], dtype=np.int16)
+        channels = np.asarray(hits["channel"], dtype=np.int16)
+        heights = np.asarray(hits["height"], dtype=np.float32)
+        integrals = np.asarray(hits["integral"], dtype=np.float32)
+        record_ids = np.asarray(hits["record_id"], dtype=np.int64)
 
-    dt_ps = dt_values.astype(np.float64) * 1e3
-    abs_starts = timestamps.astype(np.float64) + (starts_rel - positions) * dt_ps
-    abs_ends = timestamps.astype(np.float64) + (ends_rel - positions) * dt_ps
+        dt_ps = dt_values.astype(np.float64) * 1e3
+        abs_starts = timestamps.astype(np.float64) + (starts_rel - positions) * dt_ps
+        abs_ends = timestamps.astype(np.float64) + (ends_rel - positions) * dt_ps
 
     invalid = (starts_rel < 0) | (ends_rel < 0)
     if np.any(invalid):
-        if component_rows is None or component_hits is None:
-            raise ValueError(
-                "component_rows and component_hits are required when hit "
-                "windows contain invalid edges"
-            )
-        hit_idx = np.asarray(component_rows["hit_index"], dtype=np.int64)
-        c_ts = np.asarray(component_hits["timestamp"], dtype=np.int64)
-        c_pos = np.asarray(component_hits["position"], dtype=np.float64)
-        c_dt = np.asarray(component_hits["dt"], dtype=np.int32)
-        c_s = np.asarray(component_hits["edge_start"], dtype=np.int32)
-        c_e = np.asarray(component_hits["edge_end"], dtype=np.int32)
-        c_dt_ps = c_dt.astype(np.float64) * 1e3
-        c_abs_s = c_ts.astype(np.float64) + (c_s - c_pos) * c_dt_ps
-        c_abs_e = c_ts.astype(np.float64) + (c_e - c_pos) * c_dt_ps
-        offsets = np.asarray(hits["component_offset"], dtype=np.int64)
-        counts = np.asarray(hits["component_count"], dtype=np.int32)
-        for mi in np.flatnonzero(invalid):
-            off, cnt = int(offsets[mi]), int(counts[mi])
-            if cnt <= 0:
+        with _span("grouping.components"):
+            if component_rows is None or component_hits is None:
                 raise ValueError(
-                    f"missing hit_merged_components rows for hit_merged index {int(mi)}"
+                    "component_rows and component_hits are required when hit "
+                    "windows contain invalid edges"
                 )
-            subset = hit_idx[off : off + cnt]
-            abs_starts[mi] = float(np.min(c_abs_s[subset]))
-            abs_ends[mi] = float(np.max(c_abs_e[subset]))
+            hit_idx = np.asarray(component_rows["hit_index"], dtype=np.int64)
+            c_ts = np.asarray(component_hits["timestamp"], dtype=np.int64)
+            c_pos = np.asarray(component_hits["position"], dtype=np.float64)
+            c_dt = np.asarray(component_hits["dt"], dtype=np.int32)
+            c_s = np.asarray(component_hits["edge_start"], dtype=np.int32)
+            c_e = np.asarray(component_hits["edge_end"], dtype=np.int32)
+            c_dt_ps = c_dt.astype(np.float64) * 1e3
+            c_abs_s = c_ts.astype(np.float64) + (c_s - c_pos) * c_dt_ps
+            c_abs_e = c_ts.astype(np.float64) + (c_e - c_pos) * c_dt_ps
+            offsets = np.asarray(hits["component_offset"], dtype=np.int64)
+            counts = np.asarray(hits["component_count"], dtype=np.int32)
+            for mi in np.flatnonzero(invalid):
+                off, cnt = int(offsets[mi]), int(counts[mi])
+                if cnt <= 0:
+                    raise ValueError(
+                        f"missing hit_merged_components rows for hit_merged index {int(mi)}"
+                    )
+                subset = hit_idx[off : off + cnt]
+                abs_starts[mi] = float(np.min(c_abs_s[subset]))
+                abs_ends[mi] = float(np.max(c_abs_e[subset]))
 
-    order = np.lexsort((record_ids, timestamps, dt_values, abs_starts))
-    gap_ps = time_window_ns * 1e3
-    if _resolve_backend(backend, n) == "device":
-        from waveformanalysis_tpu_torch.ops import grouping_device as GD
+    with _span("grouping.sort"):
+        order = np.lexsort((record_ids, timestamps, dt_values, abs_starts))
+    with _span("grouping.cluster"):
+        gap_ps = time_window_ns * 1e3
+        if _resolve_backend(backend, n) == "device":
+            from waveformanalysis_tpu_torch.ops import grouping_device as GD
 
-        ids_sorted = GD.chained_gap_cluster_ids(
-            abs_starts[order], abs_ends[order], gap_ps, device=device
-        ).cpu().numpy().astype(np.int64)
-    else:
-        ids_sorted = chained_gap_cluster_ids(abs_starts[order], abs_ends[order], gap_ps)
-    n_events = int(ids_sorted[-1]) + 1 if len(ids_sorted) else 0
+            ids_sorted = to_numpy(GD.chained_gap_cluster_ids(
+                abs_starts[order], abs_ends[order], gap_ps, device=device
+            )).astype(np.int64)
+        else:
+            ids_sorted = chained_gap_cluster_ids(abs_starts[order], abs_ends[order], gap_ps)
+        n_events = int(ids_sorted[-1]) + 1 if len(ids_sorted) else 0
 
-    # within-event ordering: boards, channels, dt, abs_start, timestamp, rid
-    sub = order
-    inner = np.lexsort((
-        record_ids[sub], timestamps[sub], abs_starts[sub],
-        dt_values[sub], channels[sub], boards[sub], ids_sorted,
-    ))
-    sub = sub[inner]
-    ids_final = ids_sorted[inner]
-    bounds = np.concatenate([[0], np.flatnonzero(np.diff(ids_final)) + 1, [len(sub)]])
+    with _span("grouping.gather"):
+        # within-event ordering: boards, channels, dt, abs_start, timestamp, rid
+        sub = order
+        inner = np.lexsort((
+            record_ids[sub], timestamps[sub], abs_starts[sub],
+            dt_values[sub], channels[sub], boards[sub], ids_sorted,
+        ))
+        sub = sub[inner]
+        ids_final = ids_sorted[inner]
+        bounds = np.concatenate([[0], np.flatnonzero(np.diff(ids_final)) + 1, [len(sub)]])
 
-    # columnar build: gather once in event order, then slice per-event views
-    # (a per-event dict loop costs ~40 us/event in pandas construction)
-    s_sorted = abs_starts[sub]
-    e_sorted = abs_ends[sub]
-    starts_at = bounds[:-1]
-    t_mins = np.minimum.reduceat(s_sorted, starts_at).astype(np.int64)
-    t_maxs = np.maximum.reduceat(e_sorted, starts_at).astype(np.int64)
-    dt_g = dt_values[sub].astype(np.int32)
-    boards_g = boards[sub]
-    channels_g = channels[sub]
-    heights_g = heights[sub]
-    integrals_g = integrals[sub]
-    timestamps_g = timestamps[sub]
-    record_ids_g = record_ids[sub]
-    ss_g = starts_rel[sub].astype(np.int32)
-    se_g = ends_rel[sub].astype(np.int32)
-    bl = bounds.tolist()
-    pairs = list(zip(bl[:-1], bl[1:]))
-    # per-event cells are COPIES: views into the shared gathered column
-    # would let an in-place mutation of one event corrupt its neighbors
-    return pd.DataFrame(
-        {
-            "event_id": np.arange(n_events, dtype=np.int64),
-            "t_min": t_mins,
-            "t_max": t_maxs,
-            "dt/ns": (t_maxs - t_mins) / 1e3,
-            "n_hits": np.diff(bounds).astype(np.int64),
-            "dt": [dt_g[lo:hi].copy() for lo, hi in pairs],
-            "boards": [boards_g[lo:hi].copy() for lo, hi in pairs],
-            "channels": [channels_g[lo:hi].copy() for lo, hi in pairs],
-            "heights": [heights_g[lo:hi].copy() for lo, hi in pairs],
-            "integrals": [integrals_g[lo:hi].copy() for lo, hi in pairs],
-            "timestamps": [timestamps_g[lo:hi].copy() for lo, hi in pairs],
-            "record_ids": [record_ids_g[lo:hi].copy() for lo, hi in pairs],
-            "sample_starts": [ss_g[lo:hi].copy() for lo, hi in pairs],
-            "sample_ends": [se_g[lo:hi].copy() for lo, hi in pairs],
-        },
-        columns=columns,
-    )
+        # columnar build: gather once in event order, then slice per-event views
+        # (a per-event dict loop costs ~40 us/event in pandas construction)
+        s_sorted = abs_starts[sub]
+        e_sorted = abs_ends[sub]
+        starts_at = bounds[:-1]
+        t_mins = np.minimum.reduceat(s_sorted, starts_at).astype(np.int64)
+        t_maxs = np.maximum.reduceat(e_sorted, starts_at).astype(np.int64)
+        dt_g = dt_values[sub].astype(np.int32)
+        boards_g = boards[sub]
+        channels_g = channels[sub]
+        heights_g = heights[sub]
+        integrals_g = integrals[sub]
+        timestamps_g = timestamps[sub]
+        record_ids_g = record_ids[sub]
+        ss_g = starts_rel[sub].astype(np.int32)
+        se_g = ends_rel[sub].astype(np.int32)
+    with _span("grouping.frame"):
+        bl = bounds.tolist()
+        pairs = list(zip(bl[:-1], bl[1:]))
+        # per-event cells are COPIES: views into the shared gathered column
+        # would let an in-place mutation of one event corrupt its neighbors
+        return pd.DataFrame(
+            {
+                "event_id": np.arange(n_events, dtype=np.int64),
+                "t_min": t_mins,
+                "t_max": t_maxs,
+                "dt/ns": (t_maxs - t_mins) / 1e3,
+                "n_hits": np.diff(bounds).astype(np.int64),
+                "dt": [dt_g[lo:hi].copy() for lo, hi in pairs],
+                "boards": [boards_g[lo:hi].copy() for lo, hi in pairs],
+                "channels": [channels_g[lo:hi].copy() for lo, hi in pairs],
+                "heights": [heights_g[lo:hi].copy() for lo, hi in pairs],
+                "integrals": [integrals_g[lo:hi].copy() for lo, hi in pairs],
+                "timestamps": [timestamps_g[lo:hi].copy() for lo, hi in pairs],
+                "record_ids": [record_ids_g[lo:hi].copy() for lo, hi in pairs],
+                "sample_starts": [ss_g[lo:hi].copy() for lo, hi in pairs],
+                "sample_ends": [se_g[lo:hi].copy() for lo, hi in pairs],
+            },
+            columns=columns,
+        )
 
 
 def _flat_cells(col: Any, dtype=None):
@@ -576,7 +587,8 @@ def pair_events(
         return _pair_events_device_path(
             df_events, time_window_ns, n_channels, start_channel, device
         )
-    df_paired = df_events[df_events["dt/ns"] <= time_window_ns].copy()
+    with _span("grouping.filter"):
+        df_paired = df_events[df_events["dt/ns"] <= time_window_ns].copy()
     if df_paired.empty:
         return df_paired
 
@@ -602,26 +614,27 @@ def pair_events(
             out[ok] = flat[pos[ok]]
         return out
 
-    if "delta_t" not in df_paired.columns:
-        ts_flat, ts_off, ts_cnt = _flat(df_paired["timestamps"],
-                                        dtype=np.int64)
-        ok = ts_cnt > 0
-        hi = max(len(ts_flat) - 1, 0)
-        first = ts_flat[np.clip(ts_off, 0, hi)] if len(ts_flat) else \
-            np.zeros(len(ts_cnt), np.int64)
-        last = ts_flat[np.clip(ts_off + ts_cnt - 1, 0, hi)] \
-            if len(ts_flat) else np.zeros(len(ts_cnt), np.int64)
-        delta = (last - first) / 1000.0
-        # empty timestamp cells -> NaN (the .apply formulation raised)
-        df_paired["delta_t"] = np.where(ok, delta, np.nan)
+    with _span("grouping.pair"):
+        if "delta_t" not in df_paired.columns:
+            ts_flat, ts_off, ts_cnt = _flat(df_paired["timestamps"],
+                                            dtype=np.int64)
+            ok = ts_cnt > 0
+            hi = max(len(ts_flat) - 1, 0)
+            first = ts_flat[np.clip(ts_off, 0, hi)] if len(ts_flat) else \
+                np.zeros(len(ts_cnt), np.int64)
+            last = ts_flat[np.clip(ts_off + ts_cnt - 1, 0, hi)] \
+                if len(ts_flat) else np.zeros(len(ts_cnt), np.int64)
+            delta = (last - first) / 1000.0
+            # empty timestamp cells -> NaN (the .apply formulation raised)
+            df_paired["delta_t"] = np.where(ok, delta, np.nan)
 
-    areas_key = "areas" if "areas" in df_paired.columns else "charges"
-    heights_key = "heights" if "heights" in df_paired.columns else "peaks"
-    a_flat, a_off, a_cnt = _flat(df_paired[areas_key])
-    h_flat, h_off, h_cnt = _flat(df_paired[heights_key])
-    for i in range(n_channels):
-        df_paired[f"area_ch{start_channel + i}"] = _take(a_flat, a_off,
-                                                         a_cnt, i)
-        df_paired[f"height_ch{start_channel + i}"] = _take(h_flat, h_off,
-                                                           h_cnt, i)
+        areas_key = "areas" if "areas" in df_paired.columns else "charges"
+        heights_key = "heights" if "heights" in df_paired.columns else "peaks"
+        a_flat, a_off, a_cnt = _flat(df_paired[areas_key])
+        h_flat, h_off, h_cnt = _flat(df_paired[heights_key])
+        for i in range(n_channels):
+            df_paired[f"area_ch{start_channel + i}"] = _take(a_flat, a_off,
+                                                             a_cnt, i)
+            df_paired[f"height_ch{start_channel + i}"] = _take(h_flat, h_off,
+                                                               h_cnt, i)
     return df_paired

@@ -248,7 +248,7 @@ class FilteredWaveformsPlugin(Plugin):
         out = torch.empty(waves.shape, dtype=torch.float32, device=dev)
         for hw, idx in groups.items():
             with prof.time("filtered_waveforms.gather"):
-                idx_d = torch.from_numpy(idx).to(dev)
+                idx_d = to_device(idx, dev)
                 rows = waves[idx_d]
                 done()
             with prof.time("filtered_waveforms.filter"):

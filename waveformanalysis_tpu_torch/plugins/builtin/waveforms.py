@@ -24,6 +24,7 @@ is a torch gather on the Context's device).
 from __future__ import annotations
 
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -306,6 +307,8 @@ class WaveformsPlugin(Plugin):
         # file-level parallel parse, grouped back per channel
         prof = context.profiler
         with prof.time("st_waveforms.decode"):
+            prof.count("st_waveforms.decode_bytes",
+                       sum(os.path.getsize(f) for files in raw_files for f in files or []))
             per_channel = self._load_channels_flat(
                 adapter, raw_files, n_jobs=n_jobs, parse_engine=parse_engine
             )

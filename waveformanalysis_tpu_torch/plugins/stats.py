@@ -9,14 +9,10 @@ off/basic/detailed, aggregated into per-plugin statistics for
 
 from __future__ import annotations
 
-import json
-import logging
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
-
-logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -81,11 +77,10 @@ class PluginStatistics:
 class PluginStatsCollector:
     """Collects execution records; modes: off | basic | detailed."""
 
-    def __init__(self, mode: str = "off", log_file: Optional[str] = None) -> None:
+    def __init__(self, mode: str = "off") -> None:
         if mode not in ("off", "basic", "detailed"):
             raise ValueError(f"stats mode must be off|basic|detailed, got {mode!r}")
         self.mode = mode
-        self.log_file = log_file
         self._records: List[ExecutionRecord] = []
         self._stats: Dict[str, PluginStatistics] = {}
         self._lock = threading.Lock()
@@ -130,12 +125,6 @@ class PluginStatsCollector:
                     st.total_output_mb += output_mb
             if not success:
                 st.n_errors += 1
-        if self.log_file:
-            try:
-                with open(self.log_file, "a") as fh:
-                    fh.write(json.dumps(rec.to_dict()) + "\n")
-            except OSError as e:  # pragma: no cover
-                logger.warning("Failed to write stats log: %s", e)
 
     def get_statistics(self, plugin_name: Optional[str] = None) -> Any:
         with self._lock:

@@ -217,6 +217,18 @@ class MemmapStorage:
         except OSError:
             return 0
 
+    def stored_bytes(self, key: str, run_id: Optional[str] = None) -> int:
+        """Bytes of every file kept for ``key``: payload and metadata (with
+        its lineage); 0 for a key not stored."""
+        d = self._dir_for(run_id)
+        total = 0
+        for suffix in (".bin", ".json", ".parquet", ".pkl"):
+            try:
+                total += (d / f"{key}{suffix}").stat().st_size
+            except OSError:
+                pass
+        return total
+
     def list_keys(self, run_id: Optional[str] = None, prefix: str = "") -> List[str]:
         d = self._dir_for(run_id)
         if not d.exists():
