@@ -3673,12 +3673,11 @@ def main() -> None:
         prm1 = csc._params(bench_cfg, size, L)
         w_e = [w + k for k in range(n_copies)]
         vec = int(all(x.data_ptr() % 16 == 0 for x in w_e))
-        lay1 = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
+        lay1 = csc.chain_layout(L, w_e[0].data_ptr(), bench_cfg.use_derivative)
 
         def k1(k):
-            err = lib_chain.wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
-                                           bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
-                                           ctypes.byref(prm1), lay1.rows, int(lay1.vec), stream)
+            err = csc.launch_chain(lib_chain, lay1, w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                   bl.data_ptr(), pol.data_ptr(), ptrs1, prm1, stream)
             check(err == 0, f"chain kernel launch failed: cudaError {err}")
 
         def k7(k):
@@ -3713,8 +3712,9 @@ def main() -> None:
               f"{t_plain2:.3f}; make_chain_scan step {t_step:.3f} / {t_step2:.3f} "
               f"({size / t_step * 1e3:.0f} wf/s); kernel alone {t_k1:.3f} / {t_k1b:.3f} "
               f"({size / t_k1 * 1e3:.0f} wf/s, {100 * b_ms / t_k1:.2f} % of the {b_ms:.4f} ms "
-              f"bound); wrapper step on the cold copies {t_w1:.3f}; {lay1.rows} events per "
-              f"block, {lay1.smem_bytes} B shared memory, 16-byte copies {lay1.vec}; ptxas "
+              f"bound); wrapper step on the cold copies {t_w1:.3f}; {lay1.path} path, R "
+              f"{lay1.R}, {lay1.rows} events per block, {lay1.smem_bytes} B shared memory, "
+              f"16-byte loads {lay1.vec}; ptxas "
               f"{ptxas('chain_scan')}", flush=True)
         print(f"times chain_tile {size}x{L} ({smi}), median ms of 7: make_chain_tile step "
               f"{t_tstep:.3f} / {t_tstep2:.3f} ({size / t_tstep * 1e3:.0f} wf/s) against "

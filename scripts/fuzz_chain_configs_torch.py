@@ -25,6 +25,10 @@ with the values. Exit 1 on a ``PORT MISMATCH`` (on the card: a kernel that
 differs from the plain chain), else 0. Only the CPU reference imports JAX,
 inside the functions that ``--device cpu`` runs.
 
+``--lengths`` draws the wave lengths from another list (the configs and
+waves then differ from the JAX twin's), e.g. ``--lengths 192,250,256,257,
+300`` for rows on both sides of K1's register path (L <= 256).
+
 The reproducer's interface: ``--only N`` runs trial N alone (the earlier
 ones are still drawn, so it sees the same configs and waves) and ``--rows
 A:B`` cuts each trial's events to that slice, because whether the JAX
@@ -46,13 +50,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 ATOL, RTOL = 1e-3, 1e-4
 N_EVENTS = 256
+LENGTHS = (64, 96, 128, 192)  # the JAX twin's wave lengths
 OK, SPLIT, MISMATCH = "OK", "reference split", "PORT MISMATCH"
 
 
-def draw_trial(rng: np.random.Generator) -> tuple:
+def draw_trial(rng: np.random.Generator, lengths=LENGTHS) -> tuple:
     """One trial of the generator: (L, (waves, event_length, baselines,
-    polarity_codes), ChainConfig fields)."""
-    L = int(rng.choice([64, 96, 128, 192]))
+    polarity_codes), ChainConfig fields), L drawn from ``lengths``."""
+    L = int(rng.choice(list(lengths)))
     n = N_EVENTS
     t = np.arange(L)
     waves = np.full((n, L), 1000.0)
@@ -83,12 +88,13 @@ def draw_trial(rng: np.random.Generator) -> tuple:
     return L, (waves, el, bl, pol), fields
 
 
-def trials(n_trials: int, seed: int, only: int | None = None, rows: slice | None = None):
+def trials(n_trials: int, seed: int, only: int | None = None, rows: slice | None = None,
+           lengths=LENGTHS):
     """Yield (trial, L, arrays, fields) for each trial of ``seed``; with
     ``only``, that trial alone, and with ``rows``, its events cut to them."""
     rng = np.random.default_rng(seed)
     for trial in range(n_trials):
-        L, arrays, fields = draw_trial(rng)
+        L, arrays, fields = draw_trial(rng, lengths)
         if only is not None and trial != only:
             continue
         if rows is not None:
@@ -208,7 +214,7 @@ def card_trial(arrays: tuple, fields: dict, device, first: int = 0) -> dict:
 
 
 def run(n_trials: int, seed: int, device, only: int | None = None,
-        rows: slice | None = None) -> list:
+        rows: slice | None = None, lengths=LENGTHS) -> list:
     """Every trial's result, printed as it goes: K1 and K7 against the plain
     chain on a device other than the CPU, the port against the JAX package
     on the CPU."""
@@ -219,7 +225,7 @@ def run(n_trials: int, seed: int, device, only: int | None = None,
     dev = resolve_device(device)
     first = rows.indices(N_EVENTS)[0] if rows is not None else 0
     results = []
-    for trial, L, arrays, fields in trials(n_trials, seed, only, rows):
+    for trial, L, arrays, fields in trials(n_trials, seed, only, rows, lengths):
         t0 = time.perf_counter()
         res = cpu_trial(arrays, fields, first) if dev == torch.device("cpu") \
             else card_trial(arrays, fields, dev, first)
@@ -253,10 +259,16 @@ def main(argv=None, results: list | None = None) -> int:
     ap.add_argument("--only", type=int, default=None, help="run this trial alone")
     ap.add_argument("--rows", type=parse_rows, default=None,
                     help="cut each trial's events to START:STOP")
+    ap.add_argument("--lengths", type=lambda t: tuple(int(v) for v in t.split(",")),
+                    default=LENGTHS,
+                    help="comma-separated wave lengths a trial draws from (default the "
+                         "JAX twin's 64,96,128,192; K1 takes rows longer than 256 on "
+                         "its staged path)")
     args = ap.parse_args(argv)
     if results is None:
         results = []
-    results.extend(run(args.trials, args.seed, args.device, args.only, args.rows))
+    results.extend(run(args.trials, args.seed, args.device, args.only, args.rows,
+                       args.lengths))
     counts = {s: sum(r["status"] == s for r in results) for s in (OK, SPLIT, MISMATCH)}
     worst = max((r["worst"] for r in results), default=0.0)
     print(f"trials: {len(results)}; ok {counts[OK]}, reference splits {counts[SPLIT]}, "

@@ -8,9 +8,13 @@ kernels, on one NVIDIA GPU.
 DIR holds an earlier version of ``waveformanalysis_tpu_torch/csrc`` whose
 named kernels keep the parameter and output structs this checkout uses:
 
-- K1-K4, one thread per event on the time-major ``(L, n)`` input: the
-  entries ``wfa_chain_scan(waves_t, el, bl, pol, out, params, stream)``
-  (K1), ``wfa_peaks_scan(x_t, vlen, out, params, stream)`` (K2),
+- K1, the chain kernel staged one warp per event on the event-major int16
+  rows (PR 6 to PR 19): ``wfa_chain_scan(waves, el, bl, pol, out, params,
+  rows, vec, stream)``; its step is the output allocation, the launch and
+  the overflow counts, as this checkout's wrapper does. This checkout's K1
+  runs the path ``chain_layout`` picks (the register path at L = 256);
+- K2-K4, one thread per event on the time-major ``(L, n)`` input: the
+  entries ``wfa_peaks_scan(x_t, vlen, out, params, stream)`` (K2),
   ``wfa_hits_scan(x_t, thr, vlen, out, params, stream)`` (K3) and
   ``wfa_width_scan(w_t, is_float, baseline, positions, out, params,
   stream)`` (K4). Their wrapper step is the transposing copy, the output
@@ -44,7 +48,8 @@ the script prints per kernel and size, as medians of CUDA-event timings
 over fresh inputs:
 
 - the kernels alone on cold copies (more bytes than the 50 MB L2 holds):
-  the earlier kernel on its layout, this checkout's on event-major rows;
+  the earlier kernel on its layout, this checkout's on event-major rows
+  (for K1, both outputs first compared: integers equal, the f32 gap);
 - the wrapper steps on the same cold copies;
 
 all in turns (earlier, new, new, earlier), in one process on one card.
@@ -114,7 +119,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="directory with the earlier time-major kernel sources")
-    ap.add_argument("--kernels", default="K1,K2,K3,K4",
+    ap.add_argument("--kernels", default="K1",
                     help="comma-separated kernels to time: K1 (chain), K2 (find_peaks), "
                          "K3 (threshold hits), K4 (width crossings), K5 (zero-phase "
                          "Butterworth), K6 (one-direction Butterworth, with the two-pass "
@@ -140,7 +145,8 @@ def main() -> None:
     for kern in kernels:
         old[kern] = build_earlier(args.parent, SOURCES[kern])
     if "K1" in old:
-        old["K1"].wfa_chain_scan.argtypes = [ctypes.c_void_p] * 7
+        old["K1"].wfa_chain_scan.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [
+            ctypes.c_void_p]
     if "K2" in old:
         old["K2"].wfa_peaks_scan.argtypes = [ctypes.c_void_p] * 5
     if "K3" in old:
@@ -170,42 +176,53 @@ def main() -> None:
             bl = torch.full((size,), 1000.0, device=dev)
             pol = torch.ones(size, dtype=torch.int8, device=dev)
             w_e = [w + k for k in range(n_copies)]
-            w_t = [x.t().contiguous() for x in w_e]
-            outs1 = csc.chain_outputs(size, dev)
-            ptrs1 = csc._Outs(*(outs1[name].data_ptr() for name, _ in csc._OUTS))
+            vec = int(all(x.data_ptr() % 16 == 0 for x in w_e))
             prm1 = csc._params(bench_cfg, size, L)
-            lay1 = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
+            lay_old = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
+            lay1 = csc.chain_layout(L, w_e[0].data_ptr(), bench_cfg.use_derivative)
             new1 = csc._library()
 
-            def old_k1(k):
-                err = old["K1"].wfa_chain_scan(w_t[k % n_copies].data_ptr(), el.data_ptr(),
-                                               bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
-                                               ctypes.byref(prm1), stream)
+            def launch_old(k, ptrs):
+                err = old["K1"].wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                               bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs),
+                                               ctypes.byref(prm1), lay_old.rows, vec, stream)
                 check(err == 0, f"earlier chain kernel: cudaError {err}")
 
-            def new_k1(k):
-                err = new1.wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
-                                          bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs1),
-                                          ctypes.byref(prm1), lay1.rows, int(lay1.vec), stream)
+            def launch_new(k, ptrs):
+                err = csc.launch_chain(new1, lay1, w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                       bl.data_ptr(), pol.data_ptr(), ptrs, prm1, stream)
                 check(err == 0, f"chain kernel: cudaError {err}")
 
-            def old_step1(k):
-                x_t = w_e[k % n_copies].t().contiguous()
-                o = csc.chain_outputs(size, dev)
-                p = csc._Outs(*(o[name].data_ptr() for name, _ in csc._OUTS))
-                check(old["K1"].wfa_chain_scan(x_t.data_ptr(), el.data_ptr(), bl.data_ptr(),
-                                               pol.data_ptr(), ctypes.byref(p),
-                                               ctypes.byref(prm1), stream) == 0,
-                      "earlier chain step")
-                csc.with_overflow(o, bench_cfg)
+            outs1 = {}
+            for name, launch in (("earlier", launch_old), ("new", launch_new)):
+                outs1[name] = csc.chain_outputs(size, dev)
+                launch(0, csc._Outs(*(outs1[name][key].data_ptr() for key, _ in csc._OUTS)))
+            torch.cuda.synchronize()
+            a, b = outs1["earlier"], outs1["new"]
+            check(all(torch.equal(a[key], b[key]) for key in a if not a[key].is_floating_point()),
+                  "K1: the new kernel's integer outputs differ from the earlier one's")
+            f32_gap = max(float((a[key] - b[key]).abs().max()) for key in a
+                          if a[key].is_floating_point())
+            ptrs1 = csc._Outs(*(a[key].data_ptr() for key, _ in csc._OUTS))
 
-            def new_step1(k):
-                csc.chain_scan_cuda(w_e[k % n_copies], el, bl, pol, bench_cfg)
+            def step(launch):
+                def run(k):
+                    o = csc.chain_outputs(size, dev)
+                    launch(k, csc._Outs(*(o[key].data_ptr() for key, _ in csc._OUTS)))
+                    csc.with_overflow(o, bench_cfg)
+                return run
 
-            b1 = bound(nbytes(w, el, bl, pol, *outs1.values()), 20.0 * size * L)[0]
-            print(f"K1 {size}x{L} bench config: {in_turns(old_k1, new_k1, old_step1, new_step1)}"
-                  f"; bound {b1:.4f} ms", flush=True)
-            del w_e, w_t, outs1
+            b1 = bound(nbytes(w, el, bl, pol, *a.values()), 20.0 * size * L)[0]
+            turns = in_turns(lambda k: launch_old(k, ptrs1), lambda k: launch_new(k, ptrs1),
+                             step(launch_old), step(launch_new))
+            staged = csc.ChainLayout("staged", 0, lay_old.rows, lay_old.smem_bytes, lay_old.vec)
+            warps = [csc.chain_warps_per_sm(lay, bench_cfg.use_derivative)
+                     for lay in (staged, lay1)]
+            print(f"K1 {size}x{L} bench config: {turns}; bound {b1:.4f} ms; earlier staged, "
+                  f"{lay_old.rows} events a block, {warps[0]} warps an SM (this checkout's "
+                  f"staged path); new {lay1}, {warps[1]} warps an SM; integer outputs equal, "
+                  f"f32 max |diff| {f32_gap:.3g}", flush=True)
+            del w_e, outs1, a, b
 
         if "K2" in old:
             sig_e = [sig + k for k in range(n_copies)]
@@ -343,7 +360,7 @@ def main() -> None:
                 return new7.wfa_chain_tile(w_ptr, el.data_ptr(), bl.data_ptr(), pol.data_ptr(),
                                            ctypes.byref(ptrs), ctypes.byref(prm7), rows[name],
                                            vec, int(name == "float row"), stream)
-            lay1 = csc.row_layout(L, 2, w_e[0].data_ptr(), csc.CHAIN_SLOT_BYTES)
+            lay1 = csc.chain_layout(L, w_e[0].data_ptr(), bench_cfg.use_derivative)
             new1 = csc._library()
 
             def tile_step(name):
@@ -365,9 +382,8 @@ def main() -> None:
                 return run
 
             def k1_alone(k):
-                err = new1.wfa_chain_scan(w_e[k % n_copies].data_ptr(), el.data_ptr(),
-                                          bl.data_ptr(), pol.data_ptr(), ctypes.byref(ptrs7),
-                                          ctypes.byref(prm7), lay1.rows, int(lay1.vec), stream)
+                err = csc.launch_chain(new1, lay1, w_e[k % n_copies].data_ptr(), el.data_ptr(),
+                                       bl.data_ptr(), pol.data_ptr(), ptrs7, prm7, stream)
                 check(err == 0, f"chain kernel: cudaError {err}")
 
             order = ("earlier", "int16 row", "float row")

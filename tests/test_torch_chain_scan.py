@@ -8,6 +8,7 @@ Tolerance: integer, index, count, validity and label outputs exact; float32
 outputs atol 1e-3 / rtol 1e-4.
 """
 
+import contextlib
 import dataclasses
 import logging
 
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 from bench import make_batch
 from waveformanalysis_tpu.models import full_chain as jchain
 from waveformanalysis_tpu_torch.models import full_chain as tchain
+from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import chain_scan_cuda, make_chain_scan
 
 ATOL, RTOL = 1e-3, 1e-4
@@ -205,3 +207,90 @@ def test_smoke_reference_counts():
               int(ref["n_peak_overflow"]), int(ref["n_hit_overflow"]))
     assert counts == (chip_smoke.REF_S1_EVEN, chip_smoke.REF_S2_ODD,
                       chip_smoke.REF_PEAK_OVERFLOW, chip_smoke.REF_HIT_OVERFLOW)
+
+
+class _StubChainLibrary:
+    """Stands in for the chain kernel's library: records each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def wfa_chain_scan(self, w, el, bl, pol, outs, prm, rows, vec, stream):
+        self.calls.append(dict(path="staged", L=prm._obj.L, rows=rows, vec=vec))
+        return 0
+
+    def wfa_chain_scan_regs(self, w, el, bl, pol, outs, prm, rows, R, vec, smem, stream):
+        self.calls.append(dict(path="register", L=prm._obj.L, rows=rows, vec=vec, R=R,
+                               smem=smem, deriv=prm._obj.use_derivative))
+        return 0
+
+
+@pytest.fixture
+def stub_chain_launch(monkeypatch):
+    """chain_scan_cuda on CPU tensors posing as CUDA tensors, its library
+    stubbed: no build, no card."""
+
+    class Stream:
+        cuda_stream = 0
+
+    lib = _StubChainLibrary()
+    monkeypatch.setattr(csc, "_library", lambda: lib)
+    monkeypatch.setattr(csc, "_devices", lambda *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    return lib
+
+
+def _zero_batch(n, length):
+    return (torch.zeros((n, length), dtype=torch.int16), torch.full((n,), length, dtype=torch.int32),
+            torch.zeros(n), torch.ones(n, dtype=torch.int8))
+
+
+@pytest.mark.parametrize("length,samples", [(2, 1), (31, 1), (32, 1), (33, 2), (255, 8),
+                                            (256, 8), (257, 0), (1000, 0)])
+def test_chain_wrapper_picks_the_path_by_length(stub_chain_launch, length, samples):
+    """Rows of L <= 256 take the register path with R = ceil(L / 32)
+    rounded up to 1, 2, 4 or 8 samples a lane, longer rows the staged path;
+    the wrapper passes each path's events per block (4 and 8) and shared
+    memory: on the register path 32 R float32 samples a warp (twice with
+    the derivative signal) and the four 32-entry slot tables, on the staged
+    path row_layout's int16 row and slot tables."""
+    for deriv in (False, True):
+        batch = _zero_batch(6, length)
+        chain_scan_cuda(*batch, tchain.ChainConfig(use_derivative=deriv))
+        call = stub_chain_launch.calls[-1]
+        vec = int(length % 8 == 0 and batch[0].data_ptr() % 16 == 0)
+        rows = 4 if samples else 8
+        assert call["L"] == length and call["rows"] == rows and call["vec"] == vec
+        lay = csc.chain_layout(length, batch[0].data_ptr(), deriv)
+        assert (lay.path, lay.R, lay.rows, lay.vec) == (call["path"], samples, rows, bool(vec))
+        if samples:
+            assert call["path"] == "register" and call["R"] == samples
+            assert call["deriv"] == int(deriv)
+            assert call["smem"] == lay.smem_bytes == 4 * (
+                128 * samples * (2 if deriv else 1) + 512)
+        else:
+            assert call["path"] == "staged"
+            assert lay.smem_bytes == csc.row_layout(
+                length, 2, batch[0].data_ptr(), csc.CHAIN_SLOT_BYTES).smem_bytes == 8 * (
+                csc.row_bytes(length, 2) + 512)
+
+
+def test_chain_wrapper_counts_launches_by_path(stub_chain_launch):
+    """register_launches and staged_launches count one launch each beside
+    launches; an empty batch launches nothing and counts nothing."""
+    fn = chain_scan_cuda
+    before = (fn.launches, fn.register_launches, fn.staged_launches)
+    chain_scan_cuda(*_zero_batch(4, 256))
+    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    chain_scan_cuda(*_zero_batch(4, 300))
+    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    for length in (256, 300):
+        out = chain_scan_cuda(*_zero_batch(0, length))
+        assert out["label"].shape == (0,)
+    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert [c["path"] for c in stub_chain_launch.calls] == [
+        "register", "staged", "register", "staged"]

@@ -425,13 +425,18 @@ def test_row_layout_of_the_chain_and_hit_kernels():
 def test_chain_and_hits_wrappers_take_event_major_rows(monkeypatch):
     """chain_scan_cuda and threshold_hits_scan hand their kernels the
     event-major rows they were given (no transposing copy) with the layout
-    row_layout picks: checked with a stand-in library on CPU tensors posing
-    as CUDA tensors."""
+    chain_layout / row_layout picks: the chain's register path at L = 256
+    and 250, its staged path at 300; checked with a stand-in library on CPU
+    tensors posing as CUDA tensors."""
     seen = {}
 
     class Lib:
         def wfa_chain_scan(self, w, el, bl, pol, outs, prm, rows, vec, stream):
             seen["chain"] = (w, el, rows, vec, prm._obj.L, prm._obj.K)
+            return 0
+
+        def wfa_chain_scan_regs(self, w, el, bl, pol, outs, prm, rows, R, vec, smem, stream):
+            seen["chain"] = (w, el, rows, vec, prm._obj.L, prm._obj.K, R, smem)
             return 0
 
         def wfa_hits_scan(self, x, thr, vlen, outs, prm, rows, staged, vec, stream):
@@ -452,14 +457,21 @@ def test_chain_and_hits_wrappers_take_event_major_rows(monkeypatch):
         el = torch.full((6,), L, dtype=torch.int32)
         tscan.chain_scan_cuda(waves, el, torch.zeros(6), torch.ones(6, dtype=torch.int8))
         vec = int(L % 8 == 0 and waves.data_ptr() % 16 == 0)
-        assert seen["chain"] == (waves.data_ptr(), el.data_ptr(), 8, vec, L, 8)
+        # 4 events a block; ChainConfig's derivative signal: a second float32
+        # row a warp
+        assert seen["chain"] == (waves.data_ptr(), el.data_ptr(), 4, vec, L, 8, 8,
+                                 4 * (2 * 1024 + 512))
         sig = torch.zeros((6, L))
         thr = torch.full((6,), 10.0)
         tscan.threshold_hits_scan(sig, thr, el, max_hits=40)
         vec = int(L % 4 == 0 and sig.data_ptr() % 16 == 0)
         assert seen["hits"] == (sig.data_ptr(), thr.data_ptr(), 8, 1, vec, L, 40)
+    waves = torch.zeros((6, 300), dtype=torch.int16)
+    el = torch.full((6,), 300, dtype=torch.int32)
+    tscan.chain_scan_cuda(waves, el, torch.zeros(6), torch.ones(6, dtype=torch.int8))
+    assert seen["chain"] == (waves.data_ptr(), el.data_ptr(), 8, 0, 300, 8)
     long_sig = torch.zeros((2, 65_536))
     tscan.threshold_hits_scan(long_sig, torch.zeros(2), torch.zeros(2, dtype=torch.int32))
     assert seen["hits"][:5] == (long_sig.data_ptr(), seen["hits"][1], 8, 0, 0)
     assert (tscan.chain_scan_cuda.launches, tscan.threshold_hits_scan.launches) == (
-        counts[0] + 2, counts[1] + 3)
+        counts[0] + 3, counts[1] + 3)

@@ -206,7 +206,11 @@ def test_chain_kernel_matches_plain_and_tile_on_card():
     """K1 against full_chain_step (integers exact, f32 atol 1e-3 / rtol
     1e-4) and against K7's integer outputs, on tie-heavy int16 waves with
     ragged lengths and mixed polarity: the bench config, the derivative
-    signal at K = 32, dense slots at distance 2, L = 250 rows."""
+    signal at K = 32, dense slots at distance 2; on the register path at L =
+    256 (16-byte row loads), 250, 33 and 31 and with the rows at an
+    unaligned base (element loads), on the staged path at L = 257. The f32
+    sums of the two paths (hit_integral, the width baseline) are in
+    different orders: within the tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
     from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
@@ -225,23 +229,69 @@ def test_chain_kernel_matches_plain_and_tile_on_card():
                                     peak_prominence=4.0, peak_width=0.5, peak_distance=2,
                                     max_peaks=32, max_hits=32, hit_threshold=8.0),
     }
-    for L in (256, 250):
+    paths = set()
+    for L, unaligned in ((256, False), (250, False), (257, False), (33, False), (31, False),
+                         (256, True)):
         w, vl = tie_batch(1003, L, seed=10 + L)
         bl = (1000 + rng.integers(-3, 4, 1003)).astype(np.float32)
         pol = rng.choice(np.array([-1, 0, 1], np.int8), 1003)
         pol[::4] = 1
         batch = tuple(torch.from_numpy(a).to(dev) for a in (w, vl, bl, pol))
+        if unaligned:  # the same rows one int16 past a 16-byte boundary
+            buf = torch.empty(w.size + 8, dtype=torch.int16, device=dev)
+            waves = buf[1:1 + w.size].view(w.shape)
+            waves.copy_(batch[0])
+            batch = (waves,) + batch[1:]
+        lay = csc.chain_layout(L, batch[0].data_ptr(), False)
+        assert lay.vec == (L % 8 == 0 and not unaligned)
+        paths.add((lay.path, lay.vec))
         for tag, cfg in cfgs.items():
-            before = csc.chain_scan_cuda.launches
+            before = (csc.chain_scan_cuda.launches, csc.chain_scan_cuda.register_launches,
+                      csc.chain_scan_cuda.staged_launches)
             out = csc.chain_scan_cuda(*batch, cfg)
             torch.cuda.synchronize()
-            assert csc.chain_scan_cuda.launches == before + 1
+            reg = lay.path == "register"
+            assert (csc.chain_scan_cuda.launches, csc.chain_scan_cuda.register_launches,
+                    csc.chain_scan_cuda.staged_launches) == (
+                before[0] + 1, before[1] + reg, before[2] + (not reg))
             ref = full_chain_step(*batch, cfg)
-            _same(ref, out, f"K1 {tag} L={L}")
+            _same(ref, out, f"K1 {tag} L={L} unaligned={unaligned}")
             tile = ctc.chain_tile_cuda(*batch, cfg)
             for k, v in ref.items():
                 if not v.dtype.is_floating_point:
                     assert torch.equal(out[k], tile[k]), f"K1 != K7: {tag} L={L} {k}"
+    assert paths == {("register", True), ("register", False), ("staged", False)}
+
+
+@pytest.mark.cuda
+def test_chain_kernel_bit_equal_to_tile_on_bench_waves_on_card():
+    """K1 (the register path) and K7 (the staged float row) give all 14
+    outputs bit for bit on the benchmark's waves at 65,536 x 256 (integer
+    samples on an integer baseline: the f32 sums are exact in any order),
+    with the benchmark's config."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from portbench.gen import generator, make_batch
+    from waveformanalysis_tpu_torch.models.full_chain import ChainConfig
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+
+    dev = torch.device("cuda")
+    n, L = 65_536, 256
+    cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                      peak_width=2.0)
+    batch = (make_batch(n, L, generator(2_718_281_828, dev)),
+             torch.full((n,), L, dtype=torch.int32, device=dev),
+             torch.full((n,), 1000.0, device=dev), torch.ones(n, dtype=torch.int8, device=dev))
+    assert csc.chain_layout(L, batch[0].data_ptr(), False).path == "register"
+    out = csc.chain_scan_cuda(*batch, cfg)
+    tile = ctc.chain_tile_cuda(*batch, cfg)
+    torch.cuda.synchronize()
+    assert list(out) == list(tile) and len(out) == 14
+    for k in out:
+        assert torch.equal(out[k], tile[k]), k
+    labels = out["label"].cpu().numpy()
+    assert (labels[0::2] == 1).mean() > 0.9 and (labels[1::2] == 2).mean() > 0.9
 
 
 @pytest.mark.cuda

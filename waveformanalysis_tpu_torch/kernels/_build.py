@@ -40,12 +40,15 @@ NVCC_FLAGS = (
 _LAUNCH_LOCK = threading.Lock()
 
 
-def count_launch(wrapper) -> None:
+def count_launch(wrapper, *also: str) -> None:
     """Add one to ``wrapper.launches``, the count of the kernel launches a
-    wrapper made: under a lock, since several threads (a thread pool of
-    Contexts) launch through one wrapper."""
+    wrapper made, and to each of its counters named in ``also`` (a count by
+    path): under a lock, since several threads (a thread pool of Contexts)
+    launch through one wrapper."""
     with _LAUNCH_LOCK:
         wrapper.launches += 1
+        for name in also:
+            setattr(wrapper, name, getattr(wrapper, name) + 1)
 
 
 @dataclass

@@ -16,8 +16,12 @@ Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
 All three kernels run one warp per event on the event-major rows the
 caller formed, with no transposing copy; ``row_layout`` (shared with
 ``width_crossings_scan``) gives each its events per block, shared memory and
-row copies, and the chain kernel shares the find_peaks and threshold-run
-passes of the other two (``csrc/warp_peaks.cuh``, ``csrc/warp_hits.cuh``).
+row copies. The chain kernel takes one of two paths, which
+``chain_layout`` picks by the wave length: rows of L <= 256 samples in the
+warp's registers, R = 1, 2, 4 or 8 contiguous samples a lane
+(``csrc/warp_chain_regs.cuh``), longer rows staged in shared memory, where
+it shares the find_peaks and threshold-run passes of the other two
+(``csrc/warp_chain.cuh``, ``csrc/warp_peaks.cuh``, ``csrc/warp_hits.cuh``).
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version named above, which is the contract the
@@ -89,10 +93,16 @@ def _scan_library(name: str, entry: str, argtypes) -> ctypes.CDLL:
 
 
 def _library() -> ctypes.CDLL:
-    return _scan_library("chain_scan", "wfa_chain_scan", [ctypes.c_void_p] * 4 + [
+    lib = _scan_library("chain_scan", "wfa_chain_scan", [ctypes.c_void_p] * 4 + [
         ctypes.POINTER(_Outs), ctypes.POINTER(_Params), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ])
+    lib.wfa_chain_scan_regs.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.POINTER(_Outs), ctypes.POINTER(_Params)] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.wfa_chain_scan_regs.restype = ctypes.c_int
+    lib.wfa_chain_scan_warps_per_sm.argtypes = [ctypes.c_int] * 4
+    lib.wfa_chain_scan_warps_per_sm.restype = ctypes.c_int
+    return lib
 
 
 def _devices(*ts) -> str:
@@ -167,26 +177,91 @@ def with_overflow(outs: Dict[str, torch.Tensor], cfg: ChainConfig) -> Dict[str, 
     return outs
 
 
+# ---------------------------------------------------------------------------
+# The chain kernel's two paths (csrc/chain_scan.cu)
+# ---------------------------------------------------------------------------
+
+REG_SAMPLES = (1, 2, 4, 8)  # samples a lane of the register path holds
+REG_MAX_LENGTH = 32 * REG_SAMPLES[-1]  # the longest row the register path takes
+REG_ROWS = 4  # events (warps) per block of the register path (4 ran ahead of 8 and 2)
+
+
+@dataclass(frozen=True)
+class ChainLayout:
+    """How the chain kernel holds an event's row (``csrc/chain_scan.cu``)."""
+
+    path: str  # "register" (L <= REG_MAX_LENGTH) or "staged" (shared memory)
+    R: int  # samples a lane on the register path; 0 on the staged path
+    rows: int  # events (warps) per block
+    smem_bytes: int  # dynamic shared memory per block
+    vec: bool  # 16-byte aligned rows of L % 8 == 0: vector loads / cp.async
+
+
+def reg_samples(L: int) -> int:
+    """Samples a lane holds on the register path: ceil(L / 32) rounded up
+    to 1, 2, 4 or 8; 0 for rows longer than REG_MAX_LENGTH."""
+    return next((r for r in REG_SAMPLES if 32 * r >= L), 0)
+
+
+def reg_warp_bytes(R: int, deriv: bool) -> int:
+    """Shared memory one warp of the register path takes
+    (``wfa::reg_warp_bytes``): the float32 signal of 32 R samples, the
+    detection values beside it with use_derivative, and the slot tables."""
+    return 32 * R * 4 * (2 if deriv else 1) + CHAIN_SLOT_BYTES
+
+
+def chain_layout(L: int, base_ptr: int, deriv: bool) -> ChainLayout:
+    """The chain kernel's path for rows of L samples starting at address
+    ``base_ptr``: the register path for L <= REG_MAX_LENGTH, else the
+    staged path of ``row_layout`` (the int16 row in shared memory, every
+    L < 65536)."""
+    R = reg_samples(L)
+    if R:
+        return ChainLayout("register", R, REG_ROWS, REG_ROWS * reg_warp_bytes(R, deriv),
+                           L % 8 == 0 and base_ptr % 16 == 0)
+    lay = row_layout(L, 2, base_ptr, CHAIN_SLOT_BYTES)
+    return ChainLayout("staged", 0, lay.rows, lay.smem_bytes, lay.vec)
+
+
+def launch_chain(lib, lay: ChainLayout, waves: int, event_length: int, baselines: int,
+                 polarity_codes: int, outs: "_Outs", prm: "_Params", stream) -> int:
+    """Launch the chain kernel of layout ``lay`` on the given device
+    pointers; the cudaError_t of the launch (0 = success)."""
+    if lay.path == "register":
+        return lib.wfa_chain_scan_regs(waves, event_length, baselines, polarity_codes,
+                                       ctypes.byref(outs), ctypes.byref(prm), lay.rows, lay.R,
+                                       int(lay.vec), lay.smem_bytes, stream)
+    return lib.wfa_chain_scan(waves, event_length, baselines, polarity_codes,
+                              ctypes.byref(outs), ctypes.byref(prm), lay.rows, int(lay.vec),
+                              stream)
+
+
+def chain_warps_per_sm(lay: ChainLayout, deriv: bool) -> int:
+    """Warps of the chain kernel of layout ``lay`` one SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``); on the card."""
+    warps = _library().wfa_chain_scan_warps_per_sm(lay.R, int(deriv), lay.rows, lay.smem_bytes)
+    if warps < 0:
+        raise RuntimeError(f"chain_scan occupancy query failed: cudaError {-warps}")
+    return warps
+
+
 def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, torch.Tensor]:
     check_chain_batch(waves, event_length, baselines, polarity_codes, cfg)
     n, L = waves.shape
     dev = waves.device
-    lay = row_layout(L, 2, waves.data_ptr(), CHAIN_SLOT_BYTES)  # staged: L < 65536
+    lay = chain_layout(L, waves.data_ptr(), bool(cfg.use_derivative))
     lib = _library()
     with torch.cuda.device(dev):
         outs = chain_outputs(n, dev)
         ptrs = _Outs(*(outs[name].data_ptr() for name, _ in _OUTS))
         prm = _params(cfg, n, L)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.wfa_chain_scan(
-            waves.data_ptr(), event_length.data_ptr(), baselines.data_ptr(),
-            polarity_codes.data_ptr(), ctypes.byref(ptrs), ctypes.byref(prm),
-            lay.rows, int(lay.vec), stream,
-        )
+        err = launch_chain(lib, lay, waves.data_ptr(), event_length.data_ptr(),
+                           baselines.data_ptr(), polarity_codes.data_ptr(), ptrs, prm, stream)
     if err != 0:
         raise RuntimeError(f"chain_scan kernel launch failed: cudaError {err}")
-    if n:  # the C entry launches nothing for an empty batch
-        count_launch(chain_scan_cuda)
+    if n:  # the C entries launch nothing for an empty batch
+        count_launch(chain_scan_cuda, f"{lay.path}_launches")
     return with_overflow(outs, cfg)
 
 
@@ -210,6 +285,8 @@ def chain_scan_cuda(
 
 
 chain_scan_cuda.launches = 0  # kernel launches (not plain-version calls)
+chain_scan_cuda.register_launches = 0  # of them, on the register path (L <= 256)
+chain_scan_cuda.staged_launches = 0  # of them, on the staged path (longer rows)
 
 
 def make_chain_scan(cfg: Optional[ChainConfig] = None):
