@@ -10,7 +10,9 @@ wave access by record_id (``waves``), polarity-normalized signal access
 (n_records, L) matrix in one vectorized host gather -- the layout every
 batched device kernel consumes -- with per-record true lengths;
 :meth:`RecordsView.padded_wave_matrix_device` builds the same matrix with a
-torch gather on a device from one upload of the pool.
+torch gather on a device from one upload of the pool. Each build of
+either is a ``records.pad`` span of the active profiler, which counts the
+matrix's bytes (``records.pad_bytes``) and rows (``records.pad_rows``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from waveformanalysis_tpu_torch.device import resolve_device
 from waveformanalysis_tpu_torch.dtypes.table import Table
+from waveformanalysis_tpu_torch.foundation import profiler
 from waveformanalysis_tpu_torch.foundation.constants import pad_to_multiple
 
 # the JAX package pads rows to its TPU lane width; the port keeps the
@@ -129,6 +132,12 @@ class RecordsView:
         of 128 unless ``pad_to`` overrides it. A uint16 pool cast to int16
         wraps, as numpy's ``astype`` does.
         """
+        with profiler.span("records.pad"):
+            out, lengths = self._padded_host(pad_to, dtype, rows)
+            _count_pad(out.nbytes, len(out))
+        return out, lengths
+
+    def _padded_host(self, pad_to, dtype, rows) -> Tuple[np.ndarray, np.ndarray]:
         offsets = self._offsets if rows is None else self._offsets[rows]
         lengths = self._lengths if rows is None else self._lengths[rows]
         n = len(offsets)
@@ -164,6 +173,12 @@ class RecordsView:
         both on ``device``, equal to the host matrix. ``device="cuda"``
         without a GPU raises.
         """
+        with profiler.span("records.pad"):
+            out, lens = self._padded_device(pad_to, dtype, device)
+            _count_pad(out.numel() * out.element_size(), len(out))
+        return out, lens
+
+    def _padded_device(self, pad_to, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
         dev = resolve_device(device)
         tdtype = _torch_dtype(np.int16 if dtype is None else dtype)
         n = len(self._offsets)
@@ -198,6 +213,11 @@ class RecordsView:
         col = np.arange(waves.shape[1])[None, :]
         signal = np.where(col < lengths[:, None], signal, 0.0)
         return signal.astype(np.float32), lengths
+
+
+def _count_pad(nbytes: int, rows: int) -> None:
+    profiler.count("records.pad_bytes", int(nbytes))
+    profiler.count("records.pad_rows", int(rows))
 
 
 def _torch_dtype(dtype: Any) -> torch.dtype:

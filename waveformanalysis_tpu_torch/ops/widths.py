@@ -281,7 +281,11 @@ def integral_quantile_width(
     pos = torch.arange(L, device=x.device, dtype=torch.int32)[None, :]
     x = torch.where(pos < valid_length[:, None], x, 0.0)
     csum = cumsum_xla(x)
-    q_total = csum[:, -1]
+    # the total at each row's own last sample: the blocked sums reach the
+    # end of a row padded past its length by another association, a
+    # rounding away, and the quantile targets would move with the padding
+    last = (valid_length.to(torch.int64) - 1).clamp(0, L - 1)
+    q_total = torch.gather(csum, 1, last[:, None])[:, 0]
     ok = (q_total > 0) & torch.isfinite(q_total)
 
     # searchsorted(csum, target, 'left') == count of csum < target

@@ -144,6 +144,7 @@ def get_records_bundle(context: Any, run_id: str, plugin: Plugin) -> RecordsBund
             channel_workers=channel_workers,
             profiler=prof,
         )
+        prof.count("records.pool_samples", len(bundle.wave_pool))
     with prof.time("records.polarity"):
         bundle = apply_records_polarity(bundle, context, run_id)
     context._results[memo_key] = bundle

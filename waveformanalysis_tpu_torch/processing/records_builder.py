@@ -21,6 +21,7 @@ with the distributed block odd-even merge (``parallel/sorted_merge.py``).
 from __future__ import annotations
 
 import logging
+import os
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
 from dataclasses import dataclass
@@ -637,7 +638,10 @@ def build_records_from_v1725_files(
                 logger.warning("File not found: %s", p)
                 continue
             with _phase(profiler, "records.decode"):
-                dec = decode_v1725_bytes(p.read_bytes())
+                raw = p.read_bytes()
+                if profiler is not None:
+                    profiler.count("records.decode_bytes", len(raw))
+                dec = decode_v1725_bytes(raw)
             if dec is None:
                 decoded_any = False
                 break
@@ -738,7 +742,8 @@ def build_records_from_raw_files(
     """Full build: per-channel file parse -> parts -> merge.
 
     ``profiler`` (a Context's) times the phases ``records.decode`` (the
-    parse into parts), ``records.concat``, ``records.sort`` and
+    parse into parts, counting the files' bytes as
+    ``records.decode_bytes``), ``records.concat``, ``records.sort`` and
     ``records.gather`` (the merge).
 
     Channel parallelism: with the native C++ decoder available (the default
@@ -807,7 +812,6 @@ def build_records_from_raw_files(
             # back to pyarrow, _PYARROW_LOCK (formats/vx2730.py) serializes
             # that entry, so the thread-entry segfault hazard stays closed.
             from waveformanalysis_tpu_torch.native import get_lib
-            import os
 
             if (get_lib() is not None
                     and hasattr(adapter.format_reader, "_read_native")):
@@ -817,6 +821,9 @@ def build_records_from_raw_files(
         else:
             workers = channel_workers
         with _phase(profiler, "records.decode"):
+            if profiler is not None:
+                profiler.count("records.decode_bytes", sum(
+                    os.path.getsize(f) for files in raw_files for f in files or []))
             if workers > 1 and len(channel_args) > 1:
                 with ThreadPoolExecutor(max_workers=workers) as pool:
                     for parts in pool.map(build_channel, channel_args):
