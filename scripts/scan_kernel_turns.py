@@ -10,9 +10,10 @@ named kernels keep the parameter and output structs this checkout uses:
 
 - K1, the chain kernel staged one warp per event on the event-major int16
   rows (PR 6 to PR 19): ``wfa_chain_scan(waves, el, bl, pol, out, params,
-  rows, vec, stream)``; its step is the output allocation, the launch and
-  the overflow counts, as this checkout's wrapper does. This checkout's K1
-  runs the path ``chain_layout`` picks (the register path at L = 256);
+  rows, vec, stream)``; its step is the output allocation and the launch
+  (the kernel counts the overflows), as this checkout's wrapper does. This
+  checkout's K1 runs the path ``chain_layout`` picks (the register path at
+  L = 256);
 - K2-K4, one thread per event on the time-major ``(L, n)`` input: the
   entries ``wfa_peaks_scan(x_t, vlen, out, params, stream)`` (K2),
   ``wfa_hits_scan(x_t, thr, vlen, out, params, stream)`` (K3) and
@@ -33,8 +34,8 @@ named kernels keep the parameter and output structs this checkout uses:
   against the same earlier build's K5, whose entry is this checkout's;
 - K7, the tile chain on the event-major int16 rows:
   ``wfa_chain_tile(waves, el, bl, pol, out, params, rows, vec, stream)``;
-  its step is the output allocation, the launch and the overflow counts, as
-  this checkout's wrapper does. This checkout's K7 is timed with each of its
+  its step is the output allocation and the launch, as this checkout's
+  wrapper does. This checkout's K7 is timed with each of its
   rows (``float_row`` 1: a float32 signal row beside the int16 one, the
   wrapper's choice at these lengths; 0: the int16 row alone, its long-row
   mode), with K1 alone and as a step beside them; then, with each row
@@ -209,7 +210,6 @@ def main() -> None:
                 def run(k):
                     o = csc.chain_outputs(size, dev)
                     launch(k, csc._Outs(*(o[key].data_ptr() for key, _ in csc._OUTS)))
-                    csc.with_overflow(o, bench_cfg)
                 return run
 
             b1 = bound(nbytes(w, el, bl, pol, *a.values()), 20.0 * size * L)[0]
@@ -369,7 +369,6 @@ def main() -> None:
                     p = csc._Outs(*(o[key].data_ptr() for key, _ in csc._OUTS))
                     err = launch7(name, w_e[k % n_copies].data_ptr(), p)
                     check(err == 0, f"{name} tile chain: cudaError {err}")
-                    csc.with_overflow(o, bench_cfg)
                 return run
 
             outs7 = csc.chain_outputs(size, dev)

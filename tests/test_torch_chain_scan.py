@@ -9,8 +9,11 @@ outputs atol 1e-3 / rtol 1e-4.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import logging
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -210,34 +213,53 @@ def test_smoke_reference_counts():
 
 
 class _StubChainLibrary:
-    """Stands in for the chain kernel's library: records each launch."""
+    """Stands in for the chain kernel's library: records each launch and
+    writes through the output struct as the kernel would: the first height,
+    the last label and both counters."""
+
+    PEAK_OVERFLOW, HIT_OVERFLOW = 3, 5
 
     def __init__(self):
         self.calls = []
+        self.switches = 0  # torch.cuda.device entries
+
+    def _write(self, outs, n):
+        o = outs._obj
+        ctypes.c_float.from_address(o.height).value = 1.5
+        ctypes.c_int8.from_address(o.label + n - 1).value = 2
+        ctypes.c_int32.from_address(o.n_peak_overflow).value = self.PEAK_OVERFLOW
+        ctypes.c_int32.from_address(o.n_hit_overflow).value = self.HIT_OVERFLOW
 
     def wfa_chain_scan(self, w, el, bl, pol, outs, prm, rows, vec, stream):
         self.calls.append(dict(path="staged", L=prm._obj.L, rows=rows, vec=vec))
+        self._write(outs, prm._obj.n)
         return 0
 
     def wfa_chain_scan_regs(self, w, el, bl, pol, outs, prm, rows, R, vec, smem, stream):
         self.calls.append(dict(path="register", L=prm._obj.L, rows=rows, vec=vec, R=R,
                                smem=smem, deriv=prm._obj.use_derivative))
+        self._write(outs, prm._obj.n)
         return 0
 
 
 @pytest.fixture
 def stub_chain_launch(monkeypatch):
-    """chain_scan_cuda on CPU tensors posing as CUDA tensors, its library
-    stubbed: no build, no card."""
+    """chain_scan_cuda on CPU tensors posing as CUDA tensors on the current
+    device, its library and stream stubbed: no build, no card; an empty
+    plan cache."""
 
-    class Stream:
-        cuda_stream = 0
+    @contextlib.contextmanager
+    def device(dev):
+        lib.switches += 1
+        yield
 
     lib = _StubChainLibrary()
     monkeypatch.setattr(csc, "_library", lambda: lib)
     monkeypatch.setattr(csc, "_devices", lambda *ts: "cuda")
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(csc, "_PLANS", {})
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)  # a CPU tensor's index
+    monkeypatch.setattr(csc, "_stream", lambda dev: 0)
     return lib
 
 
@@ -276,21 +298,122 @@ def test_chain_wrapper_picks_the_path_by_length(stub_chain_launch, length, sampl
                 csc.row_bytes(length, 2) + 512)
 
 
+def _counts():
+    fn = chain_scan_cuda
+    return (fn.launches, fn.register_launches, fn.staged_launches, fn.plan_hits,
+            fn.plan_misses)
+
+
 def test_chain_wrapper_counts_launches_by_path(stub_chain_launch):
     """register_launches and staged_launches count one launch each beside
-    launches; an empty batch launches nothing and counts nothing."""
-    fn = chain_scan_cuda
-    before = (fn.launches, fn.register_launches, fn.staged_launches)
+    launches; an empty batch calls no library, counts nothing and returns
+    no events with both counters 0."""
+    before = _counts()
     chain_scan_cuda(*_zero_batch(4, 256))
-    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
-        before[0] + 1, before[1] + 1, before[2])
+    assert _counts()[:3] == (before[0] + 1, before[1] + 1, before[2])
     chain_scan_cuda(*_zero_batch(4, 300))
-    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
-        before[0] + 2, before[1] + 1, before[2] + 1)
+    assert _counts()[:3] == (before[0] + 2, before[1] + 1, before[2] + 1)
+    after = _counts()
     for length in (256, 300):
         out = chain_scan_cuda(*_zero_batch(0, length))
-        assert out["label"].shape == (0,)
-    assert (fn.launches, fn.register_launches, fn.staged_launches) == (
-        before[0] + 2, before[1] + 1, before[2] + 1)
-    assert [c["path"] for c in stub_chain_launch.calls] == [
-        "register", "staged", "register", "staged"]
+        assert out["label"].shape == (0,) and list(out) == list(_reference(0, length))
+        assert int(out["n_peak_overflow"]) == int(out["n_hit_overflow"]) == 0
+    assert _counts() == after
+    assert [c["path"] for c in stub_chain_launch.calls] == ["register", "staged"]
+
+
+def _reference(n, length, cfg=None):
+    return tchain.full_chain_step(*_zero_batch(n, length), cfg or tchain.ChainConfig())
+
+
+@pytest.mark.parametrize("length", [256, 300])
+def test_chain_wrapper_one_call_one_allocation(stub_chain_launch, length):
+    """On both paths a call makes one library call and returns
+    full_chain_step's keys, dtypes and shapes (the counters 0-d int32), all
+    views of one fresh allocation, disjoint, at the addresses the output
+    struct hands the kernel; a second call's storage is another."""
+    cfg = tchain.ChainConfig(use_derivative=False)
+    ref = _reference(6, length, cfg)
+    step = make_chain_scan(cfg)
+    batch = _zero_batch(6, length)
+    first = step(*batch)
+    second = step(*batch)
+    assert len(stub_chain_launch.calls) == 2
+    for out in (first, second):
+        assert list(out) == list(ref)
+        for k, v in ref.items():
+            assert out[k].dtype == v.dtype and out[k].shape == v.shape, k
+        assert out["n_peak_overflow"].shape == () and out["n_hit_overflow"].shape == ()
+        assert (int(out["n_peak_overflow"]), int(out["n_hit_overflow"])) == (
+            _StubChainLibrary.PEAK_OVERFLOW, _StubChainLibrary.HIT_OVERFLOW)
+        assert float(out["height"][0]) == 1.5 and int(out["label"][-1]) == 2
+        assert len({t.untyped_storage().data_ptr() for t in out.values()}) == 1
+        spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in out.values())
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert (first["label"].untyped_storage().data_ptr()
+            != second["label"].untyped_storage().data_ptr())
+
+
+def test_chain_wrapper_plans_under_threads(stub_chain_launch, monkeypatch):
+    """16 threads launch through one step function over 20 batch shapes,
+    more than the cores, with a short switch interval and a cache that
+    fills and starts afresh: every call returns its own outputs and counts
+    one launch, which is a plan hit or a plan miss."""
+    monkeypatch.setattr(csc, "MAX_PLANS", 8)
+    step = make_chain_scan(tchain.ChainConfig(use_derivative=False))
+    batches = [_zero_batch(n, 256) for n in range(4, 24)]
+    errors = []
+
+    def work(k):
+        try:
+            for i in range(40):
+                n = 4 + (k + i) % 20
+                out = step(*batches[n - 4])
+                assert out["label"].shape == (n,) and int(out["n_hit_overflow"]) == 5
+        except Exception as exc:  # reported below, with the thread's index
+            errors.append((k, exc))
+
+    before = _counts()
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    after = _counts()
+    assert after[0] - before[0] == 16 * 40 == len(stub_chain_launch.calls)
+    assert (after[3] - before[3]) + (after[4] - before[4]) == 16 * 40
+    assert len(csc._PLANS) <= 8
+
+
+def test_chain_wrapper_counts_plan_hits_and_misses(stub_chain_launch, monkeypatch):
+    """The launch plan is kept by device, n, L, the rows' 16-byte alignment
+    and the config object: a repeat hits; another n, L, alignment or config
+    misses, with the layout of its own; the device is switched only where
+    it is not the current one."""
+    cfg = tchain.ChainConfig(use_derivative=False)
+    step = make_chain_scan(cfg)
+    before = _counts()
+    step(*_zero_batch(8, 256))
+    step(*_zero_batch(8, 256))
+    step(*_zero_batch(16, 256))
+    step(*_zero_batch(8, 250))
+    chain_scan_cuda(*_zero_batch(8, 256), tchain.ChainConfig(use_derivative=False))
+    w, el, bl, pol = _zero_batch(8, 256)
+    buf = torch.zeros(8 * 256 + 8, dtype=torch.int16)
+    unaligned = buf[1:1 + 8 * 256].view(8, 256)  # 2 bytes past the base
+    step(unaligned, el, bl, pol)
+    step(*_zero_batch(8, 256))
+    after = _counts()
+    assert (after[0] - before[0], after[3] - before[3], after[4] - before[4]) == (7, 2, 5)
+    assert [c["vec"] for c in stub_chain_launch.calls] == [1, 1, 1, 0, 1, 0, 1]
+    assert [c["L"] for c in stub_chain_launch.calls] == [256, 256, 256, 250, 256, 256, 256]
+    assert stub_chain_launch.switches == 0
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    step(*_zero_batch(8, 256))
+    assert stub_chain_launch.switches == 1 and _counts()[3] == after[3] + 1

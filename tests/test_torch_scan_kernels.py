@@ -451,6 +451,9 @@ def test_chain_and_hits_wrappers_take_event_major_rows(monkeypatch):
     monkeypatch.setattr(tscan, "_devices", lambda *ts: "cuda")
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: Stream())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)  # a CPU tensor's index
+    monkeypatch.setattr(tscan, "_stream", lambda dev: 0)
+    monkeypatch.setattr(tscan, "_PLANS", {})
     counts = (tscan.chain_scan_cuda.launches, tscan.threshold_hits_scan.launches)
     for L in (256, 250):
         waves = torch.zeros((6, L), dtype=torch.int16)

@@ -340,6 +340,84 @@ def test_tile_chain_matches_plain_and_scan_chain_on_card():
                     assert torch.equal(out[k], k1[k]), f"K7 != K1: {tag} L={L} {k}"
 
 
+def comb_batch(n, L, period, seed):
+    """int16 combs on a 1000 baseline with +-2 noise: one pulse shape of
+    height 240-360 every ``period`` samples from a random phase. With the
+    bench config (8 peak and 8 hit slots) every event overflows both at
+    period 8 and none does at period 64."""
+    rng = np.random.default_rng(seed)
+    shape = np.array([0, 100, 250, 300, 250, 100, 0, 0], float)
+    t = np.arange(L)[None, :] + rng.integers(0, period, n)[:, None]
+    pulse = np.where(t % period < 8, shape[np.minimum(t % period, 7)], 0.0)
+    w = 1000 + pulse * rng.uniform(0.8, 1.2, n)[:, None] + rng.integers(-2, 3, (n, L))
+    return (w.astype(np.int16), np.full(n, L, np.int32), np.full(n, 1000.0, np.float32),
+            np.ones(n, np.int8))
+
+
+@pytest.mark.cuda
+def test_chain_overflow_counters_equal_plain_on_card():
+    """K1 on the register path (L = 256) and the staged path (L = 300), and
+    K7, count both overflows in the kernel: 0-d int32 counters on the card,
+    equal to full_chain_step's exactly on a batch where every event
+    overflows and on one where none does, on every call (the C entry zeroes
+    them first); the per-event outputs as the other tests hold them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.models.full_chain import (
+        CHAIN_OVERFLOW_KEYS,
+        ChainConfig,
+        full_chain_step,
+    )
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+
+    dev = torch.device("cuda")
+    cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                      peak_width=2.0)
+    n = 4_099
+    for L, path in ((256, "register"), (300, "staged")):
+        for period, expect in ((8, n), (64, 0)):
+            batch = tuple(torch.from_numpy(a).to(dev) for a in comb_batch(n, L, period, L))
+            assert csc.chain_layout(L, batch[0].data_ptr(), False).path == path
+            ref = full_chain_step(*batch, cfg)
+            assert [int(ref[k]) for k in CHAIN_OVERFLOW_KEYS] == [expect, expect]
+            for name, fn in (("K1", csc.chain_scan_cuda), ("K1", csc.chain_scan_cuda),
+                             ("K7", ctc.chain_tile_cuda)):
+                out = fn(*batch, cfg)
+                torch.cuda.synchronize()
+                for k in CHAIN_OVERFLOW_KEYS:
+                    assert out[k].shape == () and out[k].dtype == torch.int32, (name, k)
+                    assert out[k].device.type == "cuda", (name, k)
+                    assert int(out[k]) == expect, (name, L, period, k, int(out[k]))
+                _same(ref, out, f"{name} comb L={L} period={period}")
+
+
+@pytest.mark.cuda
+def test_chain_steps_do_not_alias_on_card():
+    """Two successive K1 steps return separate storage: a step's outputs,
+    counters included, stay as they were after the next step on another
+    batch (callers keep earlier steps' outputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.models.full_chain import ChainConfig
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+
+    dev = torch.device("cuda")
+    step = csc.make_chain_scan(ChainConfig(use_derivative=False, peak_height=80.0,
+                                           peak_prominence=50.0, peak_width=2.0))
+    combs = [tuple(torch.from_numpy(a).to(dev) for a in comb_batch(2_048, 256, period, 7))
+             for period in (8, 64)]
+    first = step(*combs[0])
+    kept = {k: v.clone() for k, v in first.items()}
+    second = step(*combs[1])
+    torch.cuda.synchronize()
+    assert (first["label"].untyped_storage().data_ptr()
+            != second["label"].untyped_storage().data_ptr())
+    for k, v in kept.items():
+        assert torch.equal(first[k], v), k
+    assert (int(first["n_peak_overflow"]), int(second["n_peak_overflow"])) == (2_048, 0)
+
+
 def filter_batch(n, L, seed):
     """float32 waves on a 1000 ADC baseline: noise and one pulse per event
     at a random place, a few events flat (a zero after the mean removal)."""

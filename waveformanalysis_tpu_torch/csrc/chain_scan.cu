@@ -7,12 +7,12 @@
 // (full_chain_step), whose PyTorch port is the plain version this kernel is
 // tested against (ops/chain_scan_cuda.py).
 //
-// Its byte bound: the int16 row is read once (2 L bytes) and 53 bytes per
-// event are written: 0.0112 ms at 65,536 x 256 and 0.180 ms at 1,048,576 x
-// 256 at 3.35 TB/s. What holds it is not its bytes but the instructions it
-// issues and the chains of dependent ones (ballots, shuffles, reductions):
-// the staged design below took 5.09 ms at 1,048,576 x 256, 3.5 % of that
-// bound (PERF.md).
+// Its byte bound: the inputs are read once (2 L + 9 bytes an event) and 45
+// bytes an event are written, with 8 bytes of counters a batch: 0.0111 ms
+// at 65,536 x 256 and 0.177 ms at 1,048,576 x 256 at 3.35 TB/s. What holds
+// it is not its bytes but the instructions it issues and the chains of
+// dependent ones (ballots, shuffles, reductions): the staged design below
+// took 5.09 ms at 1,048,576 x 256, 3.5 % of that bound (PERF.md).
 //
 // Two paths, which the wrapper picks by L (ops/chain_scan_cuda.py::
 // chain_layout):
@@ -32,13 +32,21 @@
 //   every float it needs from it at each read (2 L + 512 bytes a warp); the
 //   passes are the ones the tile chain kernel (chain_tile.cu) runs too.
 //
-// The register path at R = 8 (L = 256, no derivative): ptxas -v 57 registers
+// The register path at R = 8 (L = 256, no derivative): ptxas -v 58 registers
 // a thread, no spills, 32 warps an SM at 4 warps a block (the staged kernel:
 // 48 registers, 40 warps). At 1,048,576 x 256 with the benchmark's config it
 // took 2.399 / 2.402 ms against the staged kernel's 5.152 / 5.126 ms, in
 // turns on an NVIDIA H100 80GB HBM3 at 700 W (scripts/scan_kernel_turns.py;
 // PERF.md, §6): still bound by the instructions it issues, most of them in
 // the walks of the kept peaks (about 110 a slot before the prominence test).
+//
+// A step is one memset and one launch: the C entries zero ChainOut's two
+// overflow counters on the stream, and lane 0 of each event's warp adds the
+// event's flags into them (warp_chain.cuh's count_overflow), where the
+// wrapper summed per-event counts in four launches of its own. An atomic add
+// a set flag: on a batch where every event sets both, K1 at 1,048,576 x 256
+// took 0.8 % longer than the kernel that wrote the per-event counts, on an
+// NVIDIA H100 80GB HBM3 at 700 W (PERF.md, §6).
 //
 // The earlier design (one thread per event on a time-major copy that the
 // wrapper made, with the slot tables in registers: 128 of them at K = 8)
@@ -66,9 +74,10 @@ chain_reg_kernel(const int16_t* __restrict__ waves, const int32_t* __restrict__ 
   const int warp = threadIdx.x >> 5;
   const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
   if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
-  wfa::chain_event_regs<R, kDeriv>(waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev],
-                                   pol_in[ev], out, P,
-                                   smem + warp * wfa::reg_warp_bytes(R, kDeriv), vec, lane);
+  const ChainOverflow f = wfa::chain_event_regs<R, kDeriv>(
+      waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev], out, P,
+      smem + warp * wfa::reg_warp_bytes(R, kDeriv), vec, lane);
+  wfa::count_overflow(out, f, lane);
 }
 
 using ChainKernel = void (*)(const int16_t*, const int32_t*, const float*, const int8_t*,
@@ -94,8 +103,10 @@ chain_warp_kernel(const int16_t* __restrict__ waves, const int32_t* __restrict__
   const int warp = threadIdx.x >> 5;
   const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
   if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
-  wfa::chain_event<false>(waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev], out,
-                          P, smem + warp * wfa::chain_warp_bytes(P.L, false), vec, lane);
+  const ChainOverflow f = wfa::chain_event<false>(
+      waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev], out, P,
+      smem + warp * wfa::chain_warp_bytes(P.L, false), vec, lane);
+  wfa::count_overflow(out, f, lane);
 }
 
 }  // namespace
@@ -105,12 +116,14 @@ chain_warp_kernel(const int16_t* __restrict__ waves, const int32_t* __restrict__
 // vec != 0 promises 16-byte aligned rows (L % 8 == 0 and an aligned base).
 // Slot tables hold up to 32 peaks and 32 runs; the rows always fit shared
 // memory (L < 65536). ops/chain_scan_cuda.py::row_layout picks rows and vec.
-// Returns the cudaError_t of the launch (0 = success).
+// The overflow counters are zeroed first, also for an empty batch, which
+// launches nothing else. Returns the cudaError_t of the launch (0 = success).
 extern "C" int wfa_chain_scan(const int16_t* waves, const int32_t* event_length,
                               const float* baselines, const int8_t* polarity_codes,
                               const ChainOut* out, const ChainParams* P, int rows, int vec,
                               void* stream) {
-  if (P->n <= 0) return 0;
+  const cudaError_t z = wfa::zero_overflow(out, static_cast<cudaStream_t>(stream));
+  if (z != cudaSuccess || P->n <= 0) return (int)z;
   const int smem = rows * wfa::chain_warp_bytes(P->L, false);
   if (P->K < 1 || P->K_hits < 1 || P->K > 32 || P->K_hits > 32 || P->L < 2 || rows < 1 ||
       rows > 8 || smem > wfa::kMaxSmem)
@@ -130,13 +143,15 @@ extern "C" int wfa_chain_scan(const int16_t* waves, const int32_t* event_length,
 // events of P->L <= 32 R samples, `rows` events (warps) per block, R = 1, 2,
 // 4 or 8 samples a lane. smem must be rows * wfa::reg_warp_bytes(R,
 // use_derivative), the bytes ops/chain_scan_cuda.py::chain_layout gives;
-// vec != 0 promises 16-byte aligned rows with L % 8 == 0. Returns the
-// cudaError_t of the launch (0 = success).
+// vec != 0 promises 16-byte aligned rows with L % 8 == 0. The overflow
+// counters are zeroed first, as in wfa_chain_scan. Returns the cudaError_t of
+// the launch (0 = success).
 extern "C" int wfa_chain_scan_regs(const int16_t* waves, const int32_t* event_length,
                                    const float* baselines, const int8_t* polarity_codes,
                                    const ChainOut* out, const ChainParams* P, int rows, int R,
                                    int vec, int smem, void* stream) {
-  if (P->n <= 0) return 0;
+  const cudaError_t z = wfa::zero_overflow(out, static_cast<cudaStream_t>(stream));
+  if (z != cudaSuccess || P->n <= 0) return (int)z;
   const bool deriv = P->use_derivative != 0;
   const ChainKernel k = reg_kernel(R, deriv);
   if (k == nullptr || P->K < 1 || P->K_hits < 1 || P->K > 32 || P->K_hits > 32 || P->L < 2 ||

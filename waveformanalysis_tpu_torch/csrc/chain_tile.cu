@@ -31,9 +31,10 @@
 // kernel 17 % faster than the int16 row alone on an NVIDIA H100 80GB HBM3
 // at 700 W (PERF.md, scripts/scan_kernel_turns.py).
 //
-// What bounds it on this card: bytes. The int16 row is read once (2 L
-// bytes) and 53 bytes per event are written: 0.0112 ms at 65,536 x 256 and
-// 0.180 ms at 1,048,576 x 256 at 3.35 TB/s.
+// What bounds it on this card: bytes. The inputs are read once (2 L + 9
+// bytes an event) and 45 bytes an event are written, with 8 bytes of
+// counters a batch: 0.0111 ms at 65,536 x 256 and 0.177 ms at 1,048,576 x
+// 256 at 3.35 TB/s.
 //
 // Shared memory: wfa::chain_warp_bytes(L, float_row) a warp
 // (ops/chain_tile_cuda.py::tile_layout mirrors it and picks the row by the
@@ -57,9 +58,10 @@ chain_tile_kernel(const int16_t* __restrict__ waves, const int32_t* __restrict__
   const int warp = threadIdx.x >> 5;
   const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
   if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
-  wfa::chain_event<kFloatRow>(waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev],
-                              out, P, smem + warp * wfa::chain_warp_bytes(P.L, kFloatRow), vec,
-                              lane);
+  const ChainOverflow f = wfa::chain_event<kFloatRow>(
+      waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev], out, P,
+      smem + warp * wfa::chain_warp_bytes(P.L, kFloatRow), vec, lane);
+  wfa::count_overflow(out, f, lane);
 }
 
 template <bool kFloatRow>
@@ -83,18 +85,20 @@ int launch(const int16_t* waves, const int32_t* el, const float* bl, const int8_
 // vec != 0 promises 16-byte aligned rows (L % 8 == 0 and an aligned base);
 // float_row != 0 keeps the float32 signal row beside the int16 one. Slot
 // tables hold up to 32 peaks and 32 runs; `rows` events must fit the
-// block's shared memory (ops/chain_tile_cuda.py::tile_layout). Returns the
-// cudaError_t of the launch (0 = success).
+// block's shared memory (ops/chain_tile_cuda.py::tile_layout). The overflow
+// counters are zeroed first, also for an empty batch, which launches nothing
+// else. Returns the cudaError_t of the launch (0 = success).
 extern "C" int wfa_chain_tile(const int16_t* waves, const int32_t* event_length,
                               const float* baselines, const int8_t* polarity_codes,
                               const ChainOut* out, const ChainParams* P, int rows, int vec,
                               int float_row, void* stream) {
-  if (P->n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t z = wfa::zero_overflow(out, s);
+  if (z != cudaSuccess || P->n <= 0) return (int)z;
   const int smem = rows * wfa::chain_warp_bytes(P->L, float_row != 0);
   if (P->K < 1 || P->K_hits < 1 || P->K > 32 || P->K_hits > 32 || P->L < 2 || rows < 1 ||
       rows > 32 || smem > wfa::kMaxSmem)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (float_row)
     return launch<true>(waves, event_length, baselines, polarity_codes, out, P, rows, vec, smem, s);
   return launch<false>(waves, event_length, baselines, polarity_codes, out, P, rows, vec, smem, s);

@@ -39,8 +39,17 @@ struct ChainOut {
   float* fall_samples;
   float* width_samples;
   int8_t* label;
-  int32_t* n_candidates;  // raw, uncapped: the wrapper derives overflow
-  int32_t* n_runs;
+  // Two int32 counters, adjacent (n_hit_overflow == n_peak_overflow + 1):
+  // the events with more candidate peaks than K and with more threshold runs
+  // than K_hits. The C entries zero them; the kernel adds each event's flags.
+  int32_t* n_peak_overflow;
+  int32_t* n_hit_overflow;
+};
+
+// One event's overflow flags (ChainOut's counters), the same on every lane.
+struct ChainOverflow {
+  bool peaks;  // more candidate peaks than K
+  bool hits;   // more threshold runs than K_hits
 };
 
 namespace wfa {

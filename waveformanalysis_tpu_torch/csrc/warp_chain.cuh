@@ -57,12 +57,13 @@ __host__ __device__ __forceinline__ int chain_warp_bytes(int L, bool float_row) 
 
 // The chain of event `ev`, whose int16 row starts at `waves_row` in global
 // memory, in the warp's `mine` bytes of shared memory (chain_warp_bytes).
-// vec != 0: 16-byte aligned row copies. Lane 0 writes the outputs.
+// vec != 0: 16-byte aligned row copies. Lane 0 writes the per-event
+// outputs; the event's overflow flags are returned (count_overflow adds them).
 template <bool kFloatRow>
-__device__ __forceinline__ void chain_event(const int16_t* __restrict__ waves_row, int ev,
-                                            int el_raw, float bl, int8_t pol,
-                                            const ChainOut& out, const ChainParams& P,
-                                            unsigned char* mine, int vec, int lane) {
+__device__ __forceinline__ ChainOverflow chain_event(const int16_t* __restrict__ waves_row,
+                                                     int ev, int el_raw, float bl, int8_t pol,
+                                                     const ChainOut& out, const ChainParams& P,
+                                                     unsigned char* mine, int vec, int lane) {
   const int L = P.L;
   const int K = P.K;
   const int KH = P.K_hits;
@@ -250,9 +251,25 @@ __device__ __forceinline__ void chain_event(const int16_t* __restrict__ waves_ro
     out.fall_samples[ev] = fall_out;
     out.width_samples[ev] = width_samples;
     out.label[ev] = label;
-    out.n_candidates[ev] = n_cand;
-    out.n_runs[ev] = n_runs;
   }
+  return {n_cand > K, n_runs > KH};
+}
+
+// Lane 0 adds the event's overflow flags into ChainOut's counters: one
+// atomic add a set flag (the benchmark's waves set 1 in 60 peak flags).
+__device__ __forceinline__ void count_overflow(const ChainOut& out, ChainOverflow f, int lane) {
+  if (lane == 0) {
+    if (f.peaks) atomicAdd(out.n_peak_overflow, 1);
+    if (f.hits) atomicAdd(out.n_hit_overflow, 1);
+  }
+}
+
+// Zeroes ChainOut's two adjacent counters on `stream` (one memset) before
+// the kernel counts into them; cudaErrorInvalidValue where they are not
+// adjacent.
+inline cudaError_t zero_overflow(const ChainOut* out, cudaStream_t stream) {
+  if (out->n_hit_overflow != out->n_peak_overflow + 1) return cudaErrorInvalidValue;
+  return cudaMemsetAsync(out->n_peak_overflow, 0, 2 * sizeof(int32_t), stream);
 }
 
 }  // namespace wfa

@@ -164,12 +164,15 @@ constexpr int kCountBits = R >= 8 ? 3 : R >= 4 ? 2 : 1;
 // `waves_row` in global memory, with the warp's `mine` bytes of shared
 // memory (reg_warp_bytes). vec != 0: the row and its base are 16-byte
 // aligned and L % 8 == 0 (one vector load a lane). Lane 0 writes the
-// outputs.
+// per-event outputs; the event's overflow flags are returned (the kernel
+// counts them, warp_chain.cuh's count_overflow).
 template <int R, bool kDeriv>
-__device__ __forceinline__ void chain_event_regs(const int16_t* __restrict__ waves_row, int ev,
-                                                 int el_raw, float bl, int8_t pol,
-                                                 const ChainOut& out, const ChainParams& P,
-                                                 unsigned char* mine, int vec, int lane) {
+__device__ __forceinline__ ChainOverflow chain_event_regs(const int16_t* __restrict__ waves_row,
+                                                          int ev, int el_raw, float bl,
+                                                          int8_t pol, const ChainOut& out,
+                                                          const ChainParams& P,
+                                                          unsigned char* mine, int vec,
+                                                          int lane) {
   const int L = P.L;
   const int K = P.K;
   const int KH = P.K_hits;
@@ -515,9 +518,8 @@ __device__ __forceinline__ void chain_event_regs(const int16_t* __restrict__ wav
     out.fall_samples[ev] = fall_out;
     out.width_samples[ev] = width_samples;
     out.label[ev] = label;
-    out.n_candidates[ev] = n_cand;
-    out.n_runs[ev] = n_runs;
   }
+  return {n_cand > K, n_runs > KH};
 }
 
 }  // namespace wfa

@@ -4,9 +4,9 @@ Port of ``waveformanalysis_tpu/ops/chain_scan_pallas.py``:
 
 - ``chain_scan_cuda`` / ``make_chain_scan`` (``csrc/chain_scan.cu``): the
   fused chain, the same 12 per-event outputs as ``full_chain_step``,
-  ``label`` as int8, and the two int32 overflow scalars derived from the
-  raw per-event candidate/run counts; ``make_sharded_chain_scan`` runs it
-  on every shard of a device mesh;
+  ``label`` as int8, and the two int32 overflow counters, which the kernel
+  counts itself; ``make_sharded_chain_scan`` runs it on every shard of a
+  device mesh;
 - ``find_peaks_scan`` (``csrc/peaks_scan.cu``): scipy-parity find_peaks,
   the contract of ``ops.peaks.find_peaks_batch`` without a neighbour
   threshold;
@@ -25,7 +25,10 @@ it shares the find_peaks and threshold-run passes of the other two
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
 it runs the plain PyTorch version named above, which is the contract the
-kernel is held to. The scan kernels agree with their plain versions on
+kernel is held to. A chain step is one memset and one launch: its outputs
+are typed views of one fresh allocation (``chain_outputs``), and what
+depends only on the batch's shape, alignment and config is kept in a launch
+plan (``_launch``). The scan kernels agree with their plain versions on
 every slot the ``valid`` mask selects and on positions, validity and
 counts everywhere; values in slots that are not valid are not part of the
 contract (the JAX package's tests compare them the same way).
@@ -34,8 +37,9 @@ contract (the JAX package's tests compare them the same way).
 from __future__ import annotations
 
 import ctypes
+import operator
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -65,7 +69,9 @@ class _Params(ctypes.Structure):
     )]
 
 
-# kernel output name -> dtype, in the C struct's field order
+# kernel output name -> dtype, in the C struct's field order: the 12
+# per-event outputs, then the two overflow counters (0-d) the kernel adds
+# each event's flags into
 _OUTS = (
     ("height", torch.float32), ("amp", torch.float32),
     ("area", torch.float32), ("max_abs_diff", torch.float32),
@@ -73,8 +79,9 @@ _OUTS = (
     ("n_hits", torch.int32), ("hit_integral", torch.float32),
     ("rise_samples", torch.float32), ("fall_samples", torch.float32),
     ("width_samples", torch.float32), ("label", torch.int8),
-    ("n_candidates", torch.int32), ("n_runs", torch.int32),
+    ("n_peak_overflow", torch.int32), ("n_hit_overflow", torch.int32),
 )
+_NAMES = tuple(name for name, _ in _OUTS)
 
 
 class _Outs(ctypes.Structure):
@@ -143,16 +150,31 @@ def _params(cfg: ChainConfig, n: int, L: int) -> _Params:
     )
 
 
-def check_chain_batch(waves, event_length, baselines, polarity_codes, cfg: ChainConfig) -> None:
-    """The checks both CUDA chain kernels (K1 here, K7 in chain_tile_cuda)
-    make before anything is built: dtypes, shapes, contiguity, one device,
-    1..32 slots and 2 <= L < 65536 (the int32 area sum is exact below)."""
+def check_chain_inputs(waves, event_length, baselines, polarity_codes) -> None:
+    """The chain kernels' checks of the four batch tensors: dtypes, shapes,
+    contiguity, one device."""
     n, L = waves.shape
     dev = waves.device
     _check(waves, "waves", torch.int16, (n, L), dev)
     _check(event_length, "event_length", torch.int32, (n,), dev)
     _check(baselines, "baselines", torch.float32, (n,), dev)
     _check(polarity_codes, "polarity_codes", torch.int8, (n,), dev)
+
+
+def _inputs_ok(waves, event_length, baselines, polarity_codes, n: int, dev) -> bool:
+    """check_chain_inputs as one predicate, for a good batch's fast path
+    (False: check_chain_inputs names the fault)."""
+    return (waves.dtype == torch.int16 and event_length.dtype == torch.int32
+            and baselines.dtype == torch.float32 and polarity_codes.dtype == torch.int8
+            and waves.is_contiguous() and event_length.is_contiguous()
+            and baselines.is_contiguous() and polarity_codes.is_contiguous()
+            and event_length.shape == baselines.shape == polarity_codes.shape == (n,)
+            and event_length.device == baselines.device == polarity_codes.device == dev)
+
+
+def check_chain_config(L: int, cfg: ChainConfig) -> None:
+    """The chain kernels' limits: 1..32 slots and 2 <= L < 65536 (the int32
+    area sum is exact below)."""
     if not (1 <= cfg.max_peaks <= MAX_SLOTS and 1 <= cfg.max_hits <= MAX_SLOTS):
         raise ValueError(
             f"max_peaks={cfg.max_peaks} / max_hits={cfg.max_hits}: the CUDA "
@@ -162,19 +184,63 @@ def check_chain_batch(waves, event_length, baselines, polarity_codes, cfg: Chain
         raise ValueError(f"wave length {L}: the CUDA chain kernels take 2 <= L < 65536")
 
 
+def check_chain_batch(waves, event_length, baselines, polarity_codes, cfg: ChainConfig) -> None:
+    """The checks both CUDA chain kernels (K1 here, K7 in chain_tile_cuda)
+    make before anything is built: check_chain_inputs, then
+    check_chain_config."""
+    check_chain_inputs(waves, event_length, baselines, polarity_codes)
+    check_chain_config(waves.shape[1], cfg)
+
+
+# the per-event outputs in the order they lie in the outputs' allocation:
+# the float32 ones, the int32 ones, then label
+_FLOATS = tuple(name for name, dt in _OUTS[:12] if dt == torch.float32)
+_INTS = tuple(name for name, dt in _OUTS[:12] if dt == torch.int32)
+_ROWS = _FLOATS + _INTS + ("label",)
+# _OUTS order as indices into _out_views' parts (_ROWS, then the counters)
+_PICK = operator.itemgetter(*[(_ROWS + _NAMES[12:]).index(name) for name in _NAMES])
+
+
+def _out_layout(n: int) -> Tuple[int, Tuple[int, ...]]:
+    """The one allocation that holds a batch's outputs: its int32 words and
+    the byte offset of each _OUTS field in it. The 4-byte per-event outputs
+    come first, n each in _ROWS order, then label (n int8), then the two
+    counters at the next 8-byte boundary, adjacent, as the C entries' one
+    memset takes them: 45 n + 8 bytes, and at most 7 of padding."""
+    ctr = (45 * n + 7) // 8 * 8
+    at = {name: 4 * n * k for k, name in enumerate(_ROWS)}
+    return ctr // 4 + 2, tuple(at[name] for name in _NAMES[:12]) + (ctr, ctr + 4)
+
+
+def _out_views(buf: torch.Tensor, n: int) -> Dict[str, torch.Tensor]:
+    """The _OUTS fields as typed views of ``buf`` (int32, _out_layout's
+    words): (n,) per-event outputs and 0-d counters, in _OUTS order. One
+    strided view and one unbind a dtype: every view costs host time."""
+    nf, ni = len(_FLOATS), len(_INTS)
+    parts = (buf.view(torch.float32).as_strided((nf, n), (n, 1)).unbind(0)
+             + buf.as_strided((ni, n), (n, 1), nf * n).unbind(0)
+             + (buf.view(torch.int8).as_strided((n,), (1,), 4 * (nf + ni) * n),)
+             + buf.as_strided((2,), (1,), buf.numel() - 2).unbind(0))
+    return dict(zip(_NAMES, _PICK(parts)))
+
+
 def chain_outputs(n: int, dev) -> Dict[str, torch.Tensor]:
-    """Empty per-event output tensors of the chain kernels, in _OUTS order."""
-    return {name: torch.empty(n, dtype=dt, device=dev) for name, dt in _OUTS}
+    """Outputs of the chain kernels for n events, in _OUTS order: views of
+    one fresh allocation, left empty (the C entries zero the counters)."""
+    return _out_views(torch.empty(_out_layout(n)[0], dtype=torch.int32, device=dev), n)
 
 
-def with_overflow(outs: Dict[str, torch.Tensor], cfg: ChainConfig) -> Dict[str, torch.Tensor]:
-    """Replace the raw per-event candidate / run counts by the two int32
-    overflow scalars of the full_chain_step contract."""
-    n_cand = outs.pop("n_candidates")
-    n_runs = outs.pop("n_runs")
-    outs["n_peak_overflow"] = (n_cand > cfg.max_peaks).sum(dtype=torch.int32)
-    outs["n_hit_overflow"] = (n_runs > cfg.max_hits).sum(dtype=torch.int32)
-    return outs
+def no_events(dev) -> Dict[str, torch.Tensor]:
+    """The chain's outputs for an empty batch, which launches nothing: no
+    events, both counters 0."""
+    return _out_views(torch.zeros(_out_layout(0)[0], dtype=torch.int32, device=dev), 0)
+
+
+def out_pointers(buf: torch.Tensor, offsets: Tuple[int, ...]) -> "_Outs":
+    """The C struct of the outputs held in ``buf`` at ``offsets``
+    (_out_layout)."""
+    base = buf.data_ptr()
+    return _Outs(*[base + o for o in offsets])
 
 
 # ---------------------------------------------------------------------------
@@ -223,17 +289,26 @@ def chain_layout(L: int, base_ptr: int, deriv: bool) -> ChainLayout:
     return ChainLayout("staged", 0, lay.rows, lay.smem_bytes, lay.vec)
 
 
+def _bind(lib, lay: ChainLayout, prm: "_Params") -> Callable[..., int]:
+    """The chain kernel's C entry for layout ``lay`` with ``prm`` and the
+    layout bound: a function of the four input pointers, ``byref`` of the
+    output struct and the stream, returning the cudaError_t of the launch."""
+    p = ctypes.byref(prm)  # holds prm
+    rows, vec = lay.rows, int(lay.vec)
+    if lay.path == "register":
+        fn, R, smem = lib.wfa_chain_scan_regs, lay.R, lay.smem_bytes
+        return lambda w, el, bl, pol, outs, s: fn(w, el, bl, pol, outs, p, rows, R, vec, smem, s)
+    fn = lib.wfa_chain_scan
+    return lambda w, el, bl, pol, outs, s: fn(w, el, bl, pol, outs, p, rows, vec, s)
+
+
 def launch_chain(lib, lay: ChainLayout, waves: int, event_length: int, baselines: int,
                  polarity_codes: int, outs: "_Outs", prm: "_Params", stream) -> int:
     """Launch the chain kernel of layout ``lay`` on the given device
-    pointers; the cudaError_t of the launch (0 = success)."""
-    if lay.path == "register":
-        return lib.wfa_chain_scan_regs(waves, event_length, baselines, polarity_codes,
-                                       ctypes.byref(outs), ctypes.byref(prm), lay.rows, lay.R,
-                                       int(lay.vec), lay.smem_bytes, stream)
-    return lib.wfa_chain_scan(waves, event_length, baselines, polarity_codes,
-                              ctypes.byref(outs), ctypes.byref(prm), lay.rows, int(lay.vec),
-                              stream)
+    pointers (the counters zeroed first); the cudaError_t of the launch (0 =
+    success)."""
+    return _bind(lib, lay, prm)(waves, event_length, baselines, polarity_codes,
+                                ctypes.byref(outs), stream)
 
 
 def chain_warps_per_sm(lay: ChainLayout, deriv: bool) -> int:
@@ -245,24 +320,73 @@ def chain_warps_per_sm(lay: ChainLayout, deriv: bool) -> int:
     return warps
 
 
+@dataclass(frozen=True)
+class _Plan:
+    """What a launch of K1 takes besides the batch's pointers, for one
+    (device, n, L, 16-byte alignment of the rows' base, cfg)."""
+
+    cfg: ChainConfig  # held, so that no other config takes its id in the key
+    words: int  # int32 words of the outputs' allocation (_out_layout)
+    offsets: Tuple[int, ...]  # byte offsets of the _OUTS fields in it
+    launch: Callable[..., int]  # _bind's C entry
+    counter: str  # the launch count of the layout's path
+
+
+_PLANS: Dict[tuple, _Plan] = {}
+MAX_PLANS = 64  # launch plans kept; a full cache starts afresh
+
+
+def _plan(cfg: ChainConfig, n: int, L: int, base_ptr: int) -> _Plan:
+    check_chain_config(L, cfg)
+    lay = chain_layout(L, base_ptr, bool(cfg.use_derivative))
+    words, offsets = _out_layout(n)
+    return _Plan(cfg, words, offsets, _bind(_library(), lay, _params(cfg, n, L)),
+                 f"{lay.path}_launches")
+
+
+def _stream(dev) -> int:
+    """The handle of ``dev``'s current stream, without the Stream object
+    ``torch.cuda.current_stream`` builds (0.2 against 7.0 us a call on the
+    host of an NVIDIA H100 machine; the call torch's generated kernels
+    make)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
 def _launch(waves, event_length, baselines, polarity_codes, cfg) -> Dict[str, torch.Tensor]:
-    check_chain_batch(waves, event_length, baselines, polarity_codes, cfg)
+    """One memset and one launch on the current stream: the checks, the
+    launch plan (cached by device, shape, alignment and the config object),
+    one allocation for the outputs, the pointer struct."""
     n, L = waves.shape
     dev = waves.device
-    lay = chain_layout(L, waves.data_ptr(), bool(cfg.use_derivative))
-    lib = _library()
-    with torch.cuda.device(dev):
-        outs = chain_outputs(n, dev)
-        ptrs = _Outs(*(outs[name].data_ptr() for name, _ in _OUTS))
-        prm = _params(cfg, n, L)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch_chain(lib, lay, waves.data_ptr(), event_length.data_ptr(),
-                           baselines.data_ptr(), polarity_codes.data_ptr(), ptrs, prm, stream)
+    if not _inputs_ok(waves, event_length, baselines, polarity_codes, n, dev):
+        check_chain_inputs(waves, event_length, baselines, polarity_codes)
+    w = waves.data_ptr()
+    if not n:
+        check_chain_config(L, cfg)
+        return no_events(dev)
+    key = (dev, n, L, w % 16 == 0, id(cfg))
+    plan = _PLANS.get(key)
+    hit = plan is not None
+    if not hit:
+        plan = _plan(cfg, n, L, w)
+        if len(_PLANS) >= MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    buf = torch.empty(plan.words, dtype=torch.int32, device=dev)
+    args = (w, event_length.data_ptr(), baselines.data_ptr(), polarity_codes.data_ptr(),
+            ctypes.byref(out_pointers(buf, plan.offsets)))
+    if dev.index == torch.cuda.current_device():
+        err = plan.launch(*args, _stream(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = plan.launch(*args, _stream(dev))
     if err != 0:
         raise RuntimeError(f"chain_scan kernel launch failed: cudaError {err}")
-    if n:  # the C entries launch nothing for an empty batch
-        count_launch(chain_scan_cuda, f"{lay.path}_launches")
-    return with_overflow(outs, cfg)
+    count_launch(chain_scan_cuda, plan.counter, "plan_hits" if hit else "plan_misses")
+    return _out_views(buf, n)
+
+
+_DEFAULT_CONFIG = ChainConfig()
 
 
 def chain_scan_cuda(
@@ -276,17 +400,20 @@ def chain_scan_cuda(
 
     CUDA tensors (int16 waves (n, L), int32 lengths, float32 baselines,
     int8 polarity codes, all contiguous on one device) go through the
-    kernel; CPU tensors through the plain PyTorch version.
+    kernel; CPU tensors through the plain PyTorch version. The outputs are
+    views of one allocation, fresh each call.
     """
-    cfg = cfg or ChainConfig()
-    if _devices(waves, event_length, baselines, polarity_codes) == "cpu":
-        return full_chain_step(waves, event_length, baselines, polarity_codes, cfg)
-    return _launch(waves, event_length, baselines, polarity_codes, cfg)
+    cfg = cfg or _DEFAULT_CONFIG
+    if waves.is_cuda or _devices(waves, event_length, baselines, polarity_codes) != "cpu":
+        return _launch(waves, event_length, baselines, polarity_codes, cfg)
+    return full_chain_step(waves, event_length, baselines, polarity_codes, cfg)
 
 
 chain_scan_cuda.launches = 0  # kernel launches (not plain-version calls)
 chain_scan_cuda.register_launches = 0  # of them, on the register path (L <= 256)
 chain_scan_cuda.staged_launches = 0  # of them, on the staged path (longer rows)
+chain_scan_cuda.plan_hits = 0  # of them, with a cached launch plan
+chain_scan_cuda.plan_misses = 0  # of them, with a plan made for the call
 
 
 def make_chain_scan(cfg: Optional[ChainConfig] = None):

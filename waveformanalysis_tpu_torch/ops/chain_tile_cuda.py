@@ -5,8 +5,8 @@ Port of ``waveformanalysis_tpu/ops/chain_pallas.py``: ``chain_tile_cuda`` /
 ``chain_pallas`` / ``make_jit_chain_pallas``, and ``make_sharded_chain_tile``
 that of ``make_sharded_chain_pallas``. The contract is
 ``full_chain_step``'s: the same 12 per-event outputs, ``label`` as int8,
-and the two int32 overflow scalars derived from the raw per-event
-candidate / run counts.
+and the two int32 overflow counters, which the kernel counts itself, all
+views of one allocation (``chain_scan_cuda.chain_outputs``).
 
 The kernel reads the event-major ``(n, L)`` int16 waves as they are (no
 transposing copy): one warp per event stages the row in shared memory,
@@ -34,18 +34,19 @@ from waveformanalysis_tpu_torch.models.full_chain import (
     sharded_chain,
 )
 from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
-    _OUTS,
     CHAIN_SLOT_BYTES,
     SMEM_BYTES,
+    _out_layout,
+    _out_views,
     _Outs,
     _Params,
     _devices,
     _params,
     _scan_library,
-    chain_outputs,
     check_chain_batch,
+    no_events,
+    out_pointers,
     row_bytes,
-    with_overflow,
 )
 
 DEFAULT_TILE_ROWS = 8  # events per block: 8 warps, 16 KB of shared memory at L = 256
@@ -134,12 +135,15 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg,
     n, L = waves.shape
     lay = tile_layout(L, tile_rows)
     dev = waves.device
+    if not n:
+        return no_events(dev)
     # 16-byte row loads where every row starts on a 16-byte boundary
     vec = int(L % 8 == 0 and waves.data_ptr() % 16 == 0)
     lib = _library()
+    words, offsets = _out_layout(n)
+    buf = torch.empty(words, dtype=torch.int32, device=dev)
+    ptrs = out_pointers(buf, offsets)
     with torch.cuda.device(dev):
-        outs = chain_outputs(n, dev)
-        ptrs = _Outs(*(outs[name].data_ptr() for name, _ in _OUTS))
         prm = _params(cfg, n, L)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.wfa_chain_tile(
@@ -149,9 +153,8 @@ def _launch(waves, event_length, baselines, polarity_codes, cfg,
         )
     if err != 0:
         raise RuntimeError(f"chain_tile kernel launch failed: cudaError {err}")
-    if n:  # the C entry launches nothing for an empty batch
-        count_launch(chain_tile_cuda)
-    return with_overflow(outs, cfg)
+    count_launch(chain_tile_cuda)
+    return _out_views(buf, n)
 
 
 def chain_tile_cuda(
