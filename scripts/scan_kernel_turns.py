@@ -4,7 +4,7 @@ one NVIDIA GPU.
 
     git archive <commit> waveformanalysis_tpu_torch/csrc | tar -x -C build/parent
     python3 scripts/scan_kernel_turns.py --parent build/parent/waveformanalysis_tpu_torch/csrc \\
-        [--kernels K1,K5]
+        [--kernels K1,K5] [--waves two_pulses]
 
 For each named kernel the script builds ``DIR/<source>.cu`` (with the
 headers beside it) with this checkout's nvcc flags and runs this checkout's
@@ -23,7 +23,9 @@ commit 6861ba1 or later has them all.
     K7  make_chain_tile's step       chain_tile.cu
 
 On bench.py's waves (``make_batch(65536, 256, seed=0)``, repeated to
-1,048,576 events), with bench.py's chain config (K1, K7), at K = 32 with the
+1,048,576 events; ``--waves two_pulses``: two narrow pulses a row, on which
+K1's prominence screen runs on every row and takes no slot off the walks,
+its worst case), with bench.py's chain config (K1, K7), at K = 32 with the
 route's settings (K2-K4) and with route B's Butterworth design (K5, K6),
 and for K1 and K7 also at the longer rows of ``LONG_ROWS`` (K1's staged
 path; K7's float32 row at 1,024 and its int16 row alone at 4,096), the
@@ -52,6 +54,7 @@ from functools import partial
 from pathlib import Path
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -76,6 +79,23 @@ SOURCES = {"K1": "chain_scan", "K2": "peaks_scan", "K3": "hits_scan", "K4": "wid
 ROUTE_B_DESIGN = (4, 0.002, 0.1, 0.5)  # chip_smoke.FILTER_DESIGNS["route_b"]
 LONG_ROWS = ((1_024, 262_144), (4_096, 65_536))  # (L, events): 512 MB of int16 waves each
 SIDES = ("earlier", "new", "new", "earlier")
+
+
+def two_pulse_batch(n: int, L: int, seed: int) -> np.ndarray:
+    """(n, L) int16 rows, each two narrow pulses (sigma 3, 400 and 300 ADC
+    high, L / 4 to L / 2 samples apart) on a 1000 baseline with noise sigma
+    2: with the bench config every row keeps two slots and both reach the
+    prominence, so K1's prominence screen runs on every row and takes none
+    off the walks."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(L)
+    first = rng.integers(L // 8, 3 * L // 8, n)
+    second = first + rng.integers(L // 4, L // 2, n)
+    waves = 1000.0 + rng.normal(0, 2, (n, L))
+    for c, amp in ((first, 400.0), (second, 300.0)):
+        waves += amp * np.exp(-((t[None, :] - c[:, None]) ** 2) / (2 * 3.0 ** 2))
+    return np.round(waves).astype(np.int16)
+
 
 
 def build_earlier(parent: Path, name: str) -> _build.Built:
@@ -326,6 +346,8 @@ def main() -> None:
                          "K3 (threshold hits), K4 (width crossings), K5 (zero-phase "
                          "Butterworth), K6 (one-direction Butterworth, forward and reverse), "
                          "K7 (tile chain)")
+    ap.add_argument("--waves", choices=("bench", "two_pulses"), default="bench",
+                    help="bench: bench.py's make_batch; two_pulses: two narrow pulses a row")
     args = ap.parse_args()
     kernels = args.kernels.split(",")
     check(set(kernels) <= set(SOURCES), f"--kernels takes {sorted(SOURCES)}")
@@ -333,9 +355,12 @@ def main() -> None:
     from bench import make_batch
     from waveformanalysis_tpu_torch.models.full_chain import ChainConfig
 
+    if args.waves == "two_pulses":
+        make_batch = two_pulse_batch
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
-    print(f"kernel turns on {smi}, earlier csrc/ {args.parent}", flush=True)
+    print(f"kernel turns on {smi}, earlier csrc/ {args.parent}, {args.waves} waves", flush=True)
     names = sorted({SOURCES[kern] for kern in kernels})
     with ThreadPoolExecutor(max_workers=2 * len(names)) as pool:
         earlier = pool.map(partial(build_earlier, args.parent), names)

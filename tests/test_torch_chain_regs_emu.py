@@ -8,7 +8,11 @@ tie-heavy int16 waves with ragged lengths and mixed polarity, at every R
 (1, 2, 4, 8 samples a lane), with and without the derivative signal,
 16-byte and element row loads.
 The two overflow counters are the sums of the flags chain_event_regs
-returns, as the kernel's atomic adds count them. Tolerance: integer, index,
+returns, as the kernel's atomic adds count them. The kept slots its
+prominence screen takes off the walks, whose count it returns too, equal
+a numpy count (``screened_slots``) on those waves, the benchmark's waves,
+rows where the screen's bound meets the prominence and hand-made edge
+rows. Tolerance: integer, index,
 count, validity, label and counter outputs exact; float32 outputs atol 1e-3
 / rtol 1e-4 (the register path adds the width baseline
 and hit_integral in another order). The emulator's intrinsics are held to
@@ -17,6 +21,7 @@ its lane named (``test_warp_emulator_intrinsics``). On the card,
 tests/test_torch_scan_kernels_cuda.py holds the kernel itself.
 """
 
+import dataclasses
 import subprocess
 from pathlib import Path
 
@@ -24,7 +29,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_scan_kernels_cuda import tie_batch
+from test_torch_scan_kernels_cuda import screen_batch, tie_batch
 from waveformanalysis_tpu_torch.models.full_chain import (
     CHAIN_OUT_KEYS,
     ChainConfig,
@@ -62,7 +67,8 @@ def emulator(tmp_path_factory):
 def run_emulated(exe, tmp_path, waves, el, bl, pol, cfg, R):
     """The register chain's 14 outputs on the host, as chain_scan_cuda
     returns them: the 12 per-event outputs and, as 0-d int32, the sums of
-    the overflow flags chain_event_regs returns."""
+    the overflow flags chain_event_regs returns; and the sum of the kept
+    slots its prominence screen took off the walks."""
     n, L = waves.shape
     src, dst = tmp_path / "in.bin", tmp_path / "out.bin"
     src.write_bytes(np.array([n, L], np.int32).tobytes() + bytes(csc._params(cfg, n, L))
@@ -75,8 +81,69 @@ def run_emulated(exe, tmp_path, waves, el, bl, pol, cfg, R):
         arr = np.frombuffer(raw[off:off + size], NP_TYPES[dt]).copy()
         out[name] = torch.from_numpy(arr if name in CHAIN_OUT_KEYS else arr.reshape(()))
         off += size
-    assert off == len(raw)
-    return out
+    assert off + 4 == len(raw)
+    return out, int(np.frombuffer(raw[off:], np.int32)[0])
+
+
+def screened_slots(waves, el, bl, pol, cfg):
+    """The kept slots the register chain's prominence screen takes off the
+    walks, counted in numpy row by row: the candidates (scipy's plateau
+    midpoints on the detection values at or above the height, the first
+    max_peaks by position), the greedy distance pruning (the higher value
+    first, the later slot among equals), then, in rows with two kept slots
+    or more, each kept slot below v_max, the highest kept value, whose value
+    less the minimum of the row between it and p_m, the first slot at v_max
+    (both included), falls below the prominence."""
+    sign = np.where(pol > 0, 1.0, -1.0).astype(np.float32)[:, None]
+    w32 = waves.astype(np.float32)
+    el = np.clip(el, 0, waves.shape[1])
+    if cfg.use_derivative:
+        det, det_len = sign * (w32[:, 1:] - w32[:, :-1]), np.maximum(el - 1, 0)
+    else:
+        det, det_len = sign * (w32 - bl.astype(np.float32)[:, None]), el
+    prom, total = np.float32(cfg.peak_prominence), 0
+    for x, n in zip(det, det_len):
+        pos, val, i = [], [], 1
+        while i < n - 1:
+            if x[i - 1] < x[i]:
+                ahead = i + 1
+                while ahead < n - 1 and x[ahead] == x[i]:
+                    ahead += 1
+                if x[ahead] < x[i]:
+                    if x[i] >= cfg.peak_height:
+                        pos.append((i + ahead - 1) // 2)
+                        val.append(x[i])
+                    i = ahead
+            i += 1
+        pos, val = pos[:cfg.max_peaks], val[:cfg.max_peaks]
+        keep = [True] * len(pos)
+        if cfg.peak_distance > 1:
+            for j in sorted(range(len(pos)), key=lambda j: (-val[j], -j)):
+                if keep[j]:
+                    for m in range(len(pos)):
+                        if m != j and abs(pos[m] - pos[j]) < cfg.peak_distance:
+                            keep[m] = False
+        kept = [(p, v) for p, v, k in zip(pos, val, keep) if k]
+        if len(kept) < 2:
+            continue
+        v_max = max(v for _, v in kept)
+        p_m = min(p for p, v in kept if v == v_max)
+        total += sum(1 for p, v in kept
+                     if v < v_max and v - x[min(p, p_m):max(p, p_m) + 1].min() < prom)
+    return total
+
+
+def assert_same(out, ref):
+    """Integer, index, count, label and counter outputs exact; float32
+    outputs within the tolerance."""
+    assert list(out) == list(ref)
+    for k, a in ref.items():
+        b = out[k]
+        assert b.dtype == a.dtype and b.shape == a.shape, k
+        if a.dtype.is_floating_point:
+            torch.testing.assert_close(b, a, atol=ATOL, rtol=RTOL, msg=k)
+        else:
+            assert torch.equal(b, a), (k, (b != a).nonzero().flatten()[:8].tolist())
 
 
 def _batch(n, L, seed):
@@ -102,19 +169,118 @@ def test_register_chain_matches_plain_on_host(emulator, tmp_path, length, sample
     cfg = CFGS[cfg_name]
     w, vl, bl, pol = _batch(48, length, seed=100 + length)
     ref = full_chain_step(*(torch.from_numpy(a) for a in (w, vl, bl, pol)), cfg)
-    out = run_emulated(emulator, tmp_path, w, vl, bl, pol, cfg, samples)
-    assert list(out) == list(ref)
-    for k, a in ref.items():
-        b = out[k]
-        assert b.dtype == a.dtype and b.shape == a.shape, k
-        if a.dtype.is_floating_point:
-            torch.testing.assert_close(b, a, atol=ATOL, rtol=RTOL, msg=k)
-        else:
-            assert torch.equal(b, a), (k, (b != a).nonzero().flatten()[:8].tolist())
+    out, screened = run_emulated(emulator, tmp_path, w, vl, bl, pol, cfg, samples)
+    assert_same(out, ref)
+    assert screened == screened_slots(w, vl, bl, pol, cfg)
     if cfg_name == "dense_k32_d2" and length >= 100:
         assert int(ref["n_peaks"].sum()) > 0 and int(ref["n_hits"].sum()) > 0
     if cfg_name == "dense_k32_d2" and length >= 250:  # the flags' sums are not all 0
         assert int(ref["n_peak_overflow"]) > 0 and int(ref["n_hit_overflow"]) > 0
+
+
+BENCH_CFGS = {
+    "bench": CFGS["bench"],
+    "bench_d3": dataclasses.replace(CFGS["bench"], peak_distance=3),
+    "derivative_k32": CFGS["derivative_k32"],
+}
+
+
+@pytest.mark.parametrize("cfg_name", sorted(BENCH_CFGS))
+def test_prominence_screen_on_bench_waves(emulator, tmp_path, cfg_name):
+    """The benchmark's waves (portbench.gen.make_batch: a narrow pulse on
+    even rows, a wide one on odd rows, whose noisy top holds several kept
+    slots short of the prominence) at L = 256, R = 8: the outputs equal
+    full_chain_step's and the screened slots the numpy count."""
+    from portbench.gen import generator, make_batch
+
+    cfg = BENCH_CFGS[cfg_name]
+    n, L = 192, 256
+    w = make_batch(n, L, generator(3_141_592_653, "cpu")).numpy()
+    vl = np.full(n, L, np.int32)
+    bl = np.full(n, 1000.0, np.float32)
+    pol = np.ones(n, np.int8)
+    ref = full_chain_step(*(torch.from_numpy(a) for a in (w, vl, bl, pol)), cfg)
+    out, screened = run_emulated(emulator, tmp_path, w, vl, bl, pol, cfg, 8)
+    assert_same(out, ref)
+    assert screened == screened_slots(w, vl, bl, pol, cfg)
+    if cfg_name != "derivative_k32":  # the wide pulses' tops: several a row
+        assert screened > n // 2
+
+
+@pytest.mark.parametrize("length", [256, 250])
+def test_prominence_screen_on_screen_rows(emulator, tmp_path, length):
+    """The card test's screen_batch at R = 8 with the bench config: the
+    outputs equal full_chain_step's and the screened slots the numpy count;
+    the even rows' lower peaks are valid where their bound is 50 or 51 and
+    screened where it is 49."""
+    cfg = CFGS["bench"]
+    w, vl = screen_batch(96, length, seed=24 + length)
+    n = len(w)
+    bl = np.full(n, 1000.0, np.float32)
+    pol = np.ones(n, np.int8)
+    ref = full_chain_step(*(torch.from_numpy(a) for a in (w, vl, bl, pol)), cfg)
+    out, screened = run_emulated(emulator, tmp_path, w, vl, bl, pol, cfg, 8)
+    assert_same(out, ref)
+    assert screened == screened_slots(w, vl, bl, pol, cfg) > n // 2
+    peaks = ref["n_peaks"][0::2]
+    assert bool((peaks == 1).any()) and bool((peaks == 2).any())
+
+
+def knot_rows(rows, L=256):
+    """int16 rows on a 1000 baseline, each linear between its knots (sample,
+    value above the baseline) and 0 outside them."""
+    t = np.arange(L)
+    return np.stack([np.round(1000 + np.interp(t, *zip(*knots), left=0, right=0))
+                     for knots in rows]).astype(np.int16)
+
+
+# (knots, kept slots screened, valid peaks) with the bench config: height 80,
+# prominence 50. A lower peak at 110 (120 high) beside a higher one at 60
+# (200) with a valley of 70, 71 or 69 between: its bound v - g is 50, 49 or
+# 51 (and so is its prominence); mirrored with the lower peak on the left;
+# slots in p_m's lane (lanes of 8 samples), in lane 31 left of p_m and in
+# lane 0 right of it; two tops at v_max with a slot between them; a slot 110
+# samples from p_m with every sample between high, and with the one low
+# sample (bound 60) 80 samples from it.
+EDGE_ROWS = [
+    ([(20, 0), (60, 200), (90, 70), (110, 120), (150, 0)], 0, 2),  # bound = prominence
+    ([(20, 0), (60, 200), (90, 71), (110, 120), (150, 0)], 1, 1),  # bound 49: screened
+    ([(20, 0), (60, 200), (90, 69), (110, 120), (150, 0)], 0, 2),  # bound 51
+    ([(100, 0), (140, 120), (160, 70), (190, 200), (230, 0)], 0, 2),  # mirrored
+    ([(100, 0), (140, 120), (160, 71), (190, 200), (230, 0)], 1, 1),
+    ([(40, 0), (98, 200), (100, 150), (102, 170), (160, 0)], 1, 1),  # p_m's lane, right
+    ([(40, 0), (97, 170), (99, 150), (101, 200), (160, 0)], 1, 1),  # p_m's lane, left
+    ([(200, 0), (249, 150), (250, 140), (252, 200), (255, 0)], 1, 1),  # lane 31
+    ([(0, 0), (2, 200), (3, 140), (5, 150), (60, 0)], 1, 1),  # lane 0
+    ([(20, 0), (60, 200), (90, 185), (120, 190), (150, 185), (180, 200), (230, 0)], 1, 2),
+    ([(10, 0), (40, 150), (50, 110), (150, 200), (200, 0)], 1, 1),  # 111 samples, all high
+    ([(10, 0), (40, 150), (50, 120), (100, 120), (120, 90), (150, 200), (200, 0)], 0, 2),
+]
+
+
+def test_prominence_screen_edges_on_host(emulator, tmp_path):
+    """Hand-made rows (EDGE_ROWS) where the screen's bound meets the
+    prominence exactly (the slot walks and stays valid), falls one short of
+    it or passes it by one, in both directions; slots in p_m's own lane and
+    at the row's two ends; equal-valued tops (the second top is not
+    screened). The outputs equal full_chain_step's; the screened slots equal
+    the numpy count and the rows' own."""
+    cfg = CFGS["bench"]
+    w = knot_rows([knots for knots, _, _ in EDGE_ROWS])
+    n, L = w.shape
+    vl = np.full(n, L, np.int32)
+    bl = np.full(n, 1000.0, np.float32)
+    pol = np.ones(n, np.int8)
+    ref = full_chain_step(*(torch.from_numpy(a) for a in (w, vl, bl, pol)), cfg)
+    assert ref["n_peaks"].tolist() == [peaks for _, _, peaks in EDGE_ROWS]
+    want = sum(cut for _, cut, _ in EDGE_ROWS)
+    assert screened_slots(w, vl, bl, pol, cfg) == want
+    for i in range(n):  # row by row: each row's own count
+        one = tuple(a[i:i + 1] for a in (w, vl, bl, pol))
+        assert screened_slots(*one, cfg) == EDGE_ROWS[i][1], i
+    out, screened = run_emulated(emulator, tmp_path, w, vl, bl, pol, cfg, 8)
+    assert_same(out, ref)
+    assert screened == want
 
 
 LANES = np.arange(32)

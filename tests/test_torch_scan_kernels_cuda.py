@@ -46,6 +46,33 @@ def tie_batch(n, L, seed):
     return w.astype(np.int16), rng.integers(L // 2, L + 1, n).astype(np.int32)
 
 
+def screen_batch(n, L, seed):
+    """int16 rows of L >= 200 samples on a 1000 baseline on which K1's
+    prominence screen engages (two kept slots or more): even rows two linear
+    peaks, the lower one (85 to 139 high) 12 to L / 4 samples left or right
+    of the higher one (150 to 299), with the valley between them set so that
+    the lower peak's bound, and its prominence, is 49, 50 or 51 against the
+    bench config's 50; odd rows bench.py's wide pulse (sigma 25, 250 high,
+    noise sigma 2), whose noisy top holds several kept slots short of the
+    prominence."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(L)
+    w = np.empty((n, L))
+    for i in range(n):
+        if i % 2:
+            c = rng.integers(60, L - 60)
+            w[i] = 1000 + 250 * np.exp(-(t - c) ** 2 / (2 * 25.0 ** 2)) + rng.normal(0, 2, L)
+            continue
+        v_hi, v_lo = rng.integers(150, 300), rng.integers(85, 140)
+        p_hi = rng.integers(L // 4, 3 * L // 4)
+        p_lo = p_hi + rng.integers(12, L // 4) * rng.choice([-1, 1])
+        valley = v_lo - 50 + rng.integers(-1, 2)
+        knots = sorted([(p_hi, v_hi), (p_lo, v_lo), ((p_hi + p_lo) // 2, valley),
+                        (min(p_hi, p_lo) - 20, 0), (max(p_hi, p_lo) + 20, 0)])
+        w[i] = 1000 + np.interp(t, *zip(*knots), left=0, right=0)
+    return np.round(w).astype(np.int16), np.full(n, L, np.int32)
+
+
 def peak_cases():
     """(tag, signal float32 (n, L), valid length, find_peaks keywords)."""
     w, vl = tie_batch(64, 64, seed=21)
@@ -292,6 +319,41 @@ def test_chain_kernel_bit_equal_to_tile_on_bench_waves_on_card():
         assert torch.equal(out[k], tile[k]), k
     labels = out["label"].cpu().numpy()
     assert (labels[0::2] == 1).mean() > 0.9 and (labels[1::2] == 2).mean() > 0.9
+
+
+@pytest.mark.cuda
+def test_chain_screen_rows_match_plain_and_tile_on_card():
+    """K1 on rows where its prominence screen engages on nearly every row
+    and a third of the lower peaks' bounds sit exactly at the prominence
+    (screen_batch), at L = 256 (16-byte row loads) and 250 (element loads),
+    with the bench config: against full_chain_step (integers exact, f32 atol
+    1e-3 / rtol 1e-4) and K7's integer outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    from waveformanalysis_tpu_torch.models.full_chain import ChainConfig, full_chain_step
+    from waveformanalysis_tpu_torch.ops import chain_scan_cuda as csc
+    from waveformanalysis_tpu_torch.ops import chain_tile_cuda as ctc
+
+    dev = torch.device("cuda")
+    cfg = ChainConfig(use_derivative=False, peak_height=80.0, peak_prominence=50.0,
+                      peak_width=2.0)
+    for L in (256, 250):
+        w, vl = screen_batch(8_192, L, seed=24 + L)
+        n = len(w)
+        batch = (torch.from_numpy(w).to(dev), torch.from_numpy(vl).to(dev),
+                 torch.full((n,), 1000.0, device=dev), torch.ones(n, dtype=torch.int8, device=dev))
+        lay = csc.chain_layout(L, batch[0].data_ptr(), False)
+        assert (lay.path, lay.R, lay.vec) == ("register", 8, L == 256)
+        out = csc.chain_scan_cuda(*batch, cfg)
+        torch.cuda.synchronize()
+        ref = full_chain_step(*batch, cfg)
+        _same(ref, out, f"K1 screen rows L={L}")
+        tile = ctc.chain_tile_cuda(*batch, cfg)
+        for k, v in ref.items():
+            if not v.dtype.is_floating_point:
+                assert torch.equal(out[k], tile[k]), f"K1 != K7: screen rows L={L} {k}"
+        peaks = ref["n_peaks"][0::2].cpu()
+        assert bool((peaks == 1).any()) and bool((peaks == 2).any())
 
 
 @pytest.mark.cuda

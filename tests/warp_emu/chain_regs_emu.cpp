@@ -9,8 +9,9 @@
 // event_length[n]; float32 baselines[n]; int8 polarity_codes[n]. <out>: the
 // 12 per-event outputs, each an array of n, in ChainOut's field order, then
 // the two int32 counts of lane 0's returned overflow flags (peaks, hits), as
-// the kernel's atomic adds count them. The rows are 16-byte aligned, so L %
-// 8 == 0 takes the vector loads.
+// the kernel's atomic adds count them, then the int32 sum of the kept slots
+// the prominence screen took off the walks. The rows are 16-byte aligned, so
+// L % 8 == 0 takes the vector loads.
 //
 // --selftest runs one intrinsic group on known lane values (shfl, shfl_up,
 // shfl_down, shfl_xor, ballot, reduce_min, reduce_max, reduce_add) and
@@ -33,11 +34,12 @@ void run(int n, const ChainParams& P, const int16_t* w, const int32_t* el, const
   const int vec = P.L % 8 == 0;
   warp_emu::run_warp([&](int lane) {
     for (int ev = 0; ev < n; ++ev) {
-      const ChainOverflow f = wfa::chain_event_regs<R, D>(w + (size_t)ev * P.L, ev, el[ev], bl[ev],
-                                                           pol[ev], out, P, mine, vec, lane);
+      const wfa::RegChainResult r = wfa::chain_event_regs<R, D>(
+          w + (size_t)ev * P.L, ev, el[ev], bl[ev], pol[ev], out, P, mine, vec, lane);
       if (lane == 0) {
-        counts[0] += f.peaks;
-        counts[1] += f.hits;
+        counts[0] += r.overflow.peaks;
+        counts[1] += r.overflow.hits;
+        counts[2] += r.screened;
       }
       __syncwarp();  // the warp's shared memory is free again
     }
@@ -153,7 +155,7 @@ int main(int argc, char** argv) {
                      io[0].data(), io[1].data(), io[2].data(), hit_integral.data(),
                      fo[3].data(), fo[4].data(), fo[5].data(), label.data(), nullptr,
                      nullptr};  // the kernel's counters: counts below
-  int32_t counts[2] = {0, 0};
+  int32_t counts[3] = {0, 0, 0};
   const int R = std::atoi(argv[3]);
   if (P.use_derivative) run_r<true>(R, n, P, w, el.data(), bl.data(), pol.data(), out, counts);
   else run_r<false>(R, n, P, w, el.data(), bl.data(), pol.data(), out, counts);
@@ -164,7 +166,7 @@ int main(int argc, char** argv) {
                           out.n_peaks, out.n_hits, out.hit_integral, out.rise_samples,
                           out.fall_samples, out.width_samples, out.label};
   for (int c = 0; c < 12; ++c) std::fwrite(cols[c], c == 11 ? 1 : 4, n, g);
-  std::fwrite(counts, 4, 2, g);
+  std::fwrite(counts, 4, 3, g);
   std::fclose(g);
   return 0;
 }

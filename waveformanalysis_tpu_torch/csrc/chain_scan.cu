@@ -32,13 +32,18 @@
 //   every float it needs from it at each read (2 L + 512 bytes a warp); the
 //   passes are the ones the tile chain kernel (chain_tile.cu) runs too.
 //
-// The register path at R = 8 (L = 256, no derivative): ptxas -v 58 registers
+// The register path at R = 8 (L = 256, no derivative): ptxas -v 57 registers
 // a thread, no spills, 32 warps an SM at 4 warps a block (the staged kernel:
 // 48 registers, 40 warps). At 1,048,576 x 256 with the benchmark's config it
 // took 2.399 / 2.402 ms against the staged kernel's 5.152 / 5.126 ms, in
 // turns on an NVIDIA H100 80GB HBM3 at 700 W (scripts/scan_kernel_turns.py;
 // PERF.md, §6): still bound by the instructions it issues, most of them in
-// the walks of the kept peaks (about 110 a slot before the prominence test).
+// the candidate scan and the walks of the kept peaks (about 110 a slot
+// before the prominence test). The prominence screen (warp_chain_regs.cuh)
+// spares the walks of the kept slots that cannot reach the prominence, 4.2
+// of the 5.4 on the benchmark's wide pulses: 2.403 / 2.384 -> 2.167 / 2.152
+// ms in turns, the outputs bit for bit; on rows where it runs and spares
+// none (two narrow pulses a row) 2.493 / 2.481 -> 2.543 / 2.542 ms.
 //
 // A step is one memset and one launch: the C entries zero ChainOut's two
 // overflow counters on the stream, and lane 0 of each event's warp adds the
@@ -74,10 +79,10 @@ chain_reg_kernel(const int16_t* __restrict__ waves, const int32_t* __restrict__ 
   const int warp = threadIdx.x >> 5;
   const int ev = blockIdx.x * (blockDim.x >> 5) + warp;
   if (ev >= P.n) return;  // the ragged last block: the whole warp leaves
-  const ChainOverflow f = wfa::chain_event_regs<R, kDeriv>(
+  const wfa::RegChainResult r = wfa::chain_event_regs<R, kDeriv>(
       waves + (size_t)ev * P.L, ev, el_in[ev], bl_in[ev], pol_in[ev], out, P,
       smem + warp * wfa::reg_warp_bytes(R, kDeriv), vec, lane);
-  wfa::count_overflow(out, f, lane);
+  wfa::count_overflow(out, r.overflow, lane);  // r.screened dropped: no count in the timed kernel
 }
 
 using ChainKernel = void (*)(const int16_t*, const int32_t*, const float*, const int8_t*,

@@ -33,7 +33,11 @@
 //             masked minimum, one reduction of its order-preserving int key
 //             and one of the index among equal values (the tie-breaks of
 //             walk_warp). A slot whose prominence falls short is left there:
-//             its bases and crossings cannot make it valid
+//             its bases and crossings cannot make it valid. Where two or
+//             more slots are kept, a slot below the highest kept one first
+//             bounds its prominence by the samples between the two, read 32
+//             at a time from the shared copy, and does not walk at all
+//             where the bound falls short
 //   hits      the on mask of the lane's samples; a run's start and end are
 //             its edges, with the neighbours' edge bits by two ballots,
 //             visited bit by bit; the ranks by an exclusive popcount as above
@@ -43,11 +47,11 @@
 //             masks and reductions; four lanes interpolate one each, one
 //             labels
 //
-// Values at a runtime index (a candidate's x(t - 1), the ips' x(jl), x(jl +
-// 1), ..., the width crossings' neighbours) are read from a float32 copy of
-// the signal (and of the detection values with use_derivative) that the
-// load writes to shared memory once; nothing else reads shared memory but
-// the 32-entry slot tables.
+// Values at a runtime index (a candidate's x(t - 1), the screen's samples,
+// the ips' x(jl), x(jl + 1), ..., the width crossings' neighbours) are read
+// from a float32 copy of the signal (and of the detection values with
+// use_derivative) that the load writes to shared memory once; nothing else
+// reads shared memory but the 32-entry slot tables.
 //
 // Exactness: as warp_chain.cuh (--fmad=false, IEEE division, rounding half
 // to even, the _rn intrinsics, the same float operations on the same
@@ -160,19 +164,27 @@ __device__ __forceinline__ int lane_prefix(int c, int lane, int& total) {
 template <int R>
 constexpr int kCountBits = R >= 8 ? 3 : R >= 4 ? 2 : 1;
 
+// What chain_event_regs returns, the same on every lane: the event's
+// overflow flags, and the kept slots the prominence screen took off the
+// walks (the kernel drops the count; the warp emulator sums it).
+struct RegChainResult {
+  ChainOverflow overflow;
+  int screened;
+};
+
 // The chain of event `ev`, whose int16 row of L <= 32 R samples starts at
 // `waves_row` in global memory, with the warp's `mine` bytes of shared
 // memory (reg_warp_bytes). vec != 0: the row and its base are 16-byte
 // aligned and L % 8 == 0 (one vector load a lane). Lane 0 writes the
-// per-event outputs; the event's overflow flags are returned (the kernel
-// counts them, warp_chain.cuh's count_overflow).
+// per-event outputs; the event's overflow flags (the kernel counts them,
+// warp_chain.cuh's count_overflow) and screened slots are returned.
 template <int R, bool kDeriv>
-__device__ __forceinline__ ChainOverflow chain_event_regs(const int16_t* __restrict__ waves_row,
-                                                          int ev, int el_raw, float bl,
-                                                          int8_t pol, const ChainOut& out,
-                                                          const ChainParams& P,
-                                                          unsigned char* mine, int vec,
-                                                          int lane) {
+__device__ __forceinline__ RegChainResult chain_event_regs(const int16_t* __restrict__ waves_row,
+                                                           int ev, int el_raw, float bl,
+                                                           int8_t pol, const ChainOut& out,
+                                                           const ChainParams& P,
+                                                           unsigned char* mine, int vec,
+                                                           int lane) {
   const int L = P.L;
   const int K = P.K;
   const int KH = P.K_hits;
@@ -341,11 +353,43 @@ __device__ __forceinline__ ChainOverflow chain_event_regs(const int16_t* __restr
                             : __ballot_sync(kFull, cand);
   const PeakRule PR{det_cols, P.peak_prominence, P.peak_width, P.rel_height};
   auto xat = [&](int t) -> float { return drow[t]; };
+  // The prominence screen. Where two or more slots are kept (the branch is
+  // warp-uniform), take v_max, the highest kept value, and p_m, the first
+  // kept slot at it. A slot of value v < v_max has a higher sample at or
+  // before p_m on p_m's side, so that side's minimum is at least g, the
+  // minimum of x between p and p_m (both included), and its prominence at
+  // most v - g (float subtraction is monotone). Where v - g is below the
+  // prominence, that is where no sample s between them has v - x(s) at or
+  // above it, the walk would leave at its prominence test: the slot does not
+  // walk. The samples are read from the shared copy, 32 at a time from p
+  // towards p_m, until one is low enough; the others walk as before.
+  float v_max = kNeg;  // no slot lies below it where fewer than two are kept
+  int pm = 0;
+  if (keep & (keep - 1u)) {
+    const bool kept = keep >> lane & 1u;
+    const int vkey = __reduce_max_sync(kFull, order_key(kept ? v : kNeg));
+    pm = __reduce_min_sync(kFull, kept && order_key(v) == vkey ? p : 1 << 30);
+    v_max = key_value(vkey);
+  }
+  int screened = 0;
   SlotResult res;
   for (unsigned todo = keep; todo; todo &= todo - 1) {
     const int sl = __ffs(todo) - 1;
     const int ps = __shfl_sync(kFull, p, sl);
     const float vs = __shfl_sync(kFull, v, sl);
+    if (vs < v_max) {
+      const int dir = ps < pm ? 1 : -1;
+      const int n = abs(pm - ps) + 1;  // samples from p to p_m
+      bool low = false;
+      for (int j = 0; !low && j < n; j += 32) {
+        const int t = j + lane;
+        low = __ballot_sync(kFull, t < n && vs - drow[ps + dir * t] >= PR.prominence) != 0u;
+      }
+      if (!low) {
+        ++screened;
+        continue;
+      }
+    }
     unsigned hi = 0u;  // samples above the peak
 #pragma unroll
     for (int i = 0; i < R; ++i)
@@ -519,7 +563,7 @@ __device__ __forceinline__ ChainOverflow chain_event_regs(const int16_t* __restr
     out.width_samples[ev] = width_samples;
     out.label[ev] = label;
   }
-  return {n_cand > K, n_runs > KH};
+  return {{n_cand > K, n_runs > KH}, screened};
 }
 
 }  // namespace wfa
