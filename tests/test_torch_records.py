@@ -503,6 +503,86 @@ def test_records_plugins_match_jax(tmp_path, monkeypatch, adapter, filt):
         ctx.flush_saves()
 
 
+@pytest.mark.parametrize("members", [["hit_threshold"], ["basic_features", "hit_threshold"]],
+                         ids=["alone", "fused"])
+def test_threshold_hits_of_a_negative_record_stay_inside_it(tmp_path, members):
+    """Repair: on the records source each record's row is padded with zeros
+    past its length, and hit_threshold formed its signal over the whole row,
+    so on a negative channel the padding read as +baseline. A run that
+    reached the record's end took that padding into its extended segment:
+    height the baseline, integral the baseline more. The signal past a
+    row's length is now left out, and every hit is the record's own (the
+    threshold runs of each record alone, at its true length)."""
+    from waveformanalysis_tpu_torch.ops.hits import threshold_hits_batch
+
+    n_events, length, baseline = 6, 40, 900
+    waves = np.full((n_events, length), baseline, np.int16)
+    waves[:, 10:13] -= 150
+    waves[:, -3:] -= 200  # a negative pulse that runs to the record's end
+    write_v1725_run(str(tmp_path / "daq"), "r", n_events=n_events, n_samples=length,
+                    waves={0: waves}, timestamps={0: 1000 + 700 * np.arange(n_events)},
+                    baselines={0: baseline})
+    ctx = TContext(storage_dir=str(tmp_path / "port"),
+                   config={"data_root": str(tmp_path / "daq"), "daq_adapter": "v1725",
+                           "show_progress": False, "device": "cpu"})
+    ctx.register(*tsets.get_profile("cuda"))
+    ctx.set_config({"channel_metadata": {"defaults": {"polarity": "negative"}},
+                    "hit_threshold": {"wave_source": "records", "threshold": 10.0},
+                    "basic_features": {"wave_source": "records"}})
+    got = ctx.get_data("r", members)["hit_threshold"]
+    signal = torch.from_numpy(baseline - waves.astype(np.float32))  # each record alone
+    runs = threshold_hits_batch(signal, torch.full((n_events,), 10.0),
+                                torch.full((n_events,), length, dtype=torch.int32))
+    valid = runs["valid"].numpy()
+    for k in ("position", "height", "integral"):
+        np.testing.assert_array_equal(np.asarray(got[k]), runs[k].numpy()[valid], err_msg=k)
+    assert np.asarray(got["height"]).max() == 200.0
+    ctx.flush_saves()
+
+
+@pytest.mark.parametrize("cell", ["v1725_records.tables", "vx2730_records.tables"])
+def test_records_counters_count_batches_cells_and_samples(tmp_path, cell):
+    """The records layer's counts over one window of each records cell at
+    512 records: ``wave_pool_filtered.batches`` one a (board, channel) and
+    length; ``records.pad_cells`` rows times width and ``records.pad_samples``
+    the rows' true lengths, for the two padded matrices a run (int16 for the
+    fused members, float32 for hit); ``records.pad_rows`` and
+    ``records.pad_bytes`` as they were (the VX2730 cell: 1,024 rows, 512
+    wide, 6 bytes a cell)."""
+    from portbench import harness
+    from portbench.trace import Recorder
+    from waveformanalysis_tpu_torch.foundation import profiler
+
+    spec = harness.cell(harness.load_json(Path(harness.ROOT) / "BENCHMARK.json"), cell)
+    spec.workload["events"] = n = 512
+    kind = harness.load_named("kinds", spec.workload["kind"])
+    d = kind.Driver(spec.config, spec.workload, 2**31 + 977, torch.device("cpu"), tmp_path)
+    try:
+        d.setup()
+        with Recorder(trace=False, cuda=False) as rec:
+            d.window(0.05, rec)
+        records = d.ctx.get_data(d.runs[0], "records")
+    finally:
+        d.close()
+    counts = {}
+    for c in profiler.counts(rec.t0, rec.t1):
+        counts[c.key] = counts.get(c.key, 0) + c.n
+    runs = len(d.runs)
+    lengths = np.asarray(records["event_length"], np.int64)
+    pairs = set(zip(np.asarray(records["board"]).tolist(),
+                    np.asarray(records["channel"]).tolist(), lengths.tolist()))
+    width = 128 * -(-int(lengths.max()) // 128)
+    assert counts["wave_pool_filtered.batches"] == runs * len(pairs)
+    assert counts["records.pad_cells"] == runs * 2 * n * width
+    assert counts["records.pad_samples"] == runs * 2 * int(lengths.sum())
+    assert counts["records.pad_rows"] == runs * 2 * n
+    assert counts["records.pad_bytes"] == runs * n * width * (2 + 4)
+    if cell.startswith("vx2730"):
+        assert len(pairs) == 2 and width == 512
+    else:
+        assert len(pairs) > 16 * 20 and width == 1024
+
+
 def test_examples_on_cpu(capsys):
     from waveformanalysis_tpu_torch.examples import records_pipeline_example as rp
     from waveformanalysis_tpu_torch.examples import records_view_example as rv

@@ -12,7 +12,9 @@ batched device kernel consumes -- with per-record true lengths;
 :meth:`RecordsView.padded_wave_matrix_device` builds the same matrix with a
 torch gather on a device from one upload of the pool. Each build of
 either is a ``records.pad`` span of the active profiler, which counts the
-matrix's bytes (``records.pad_bytes``) and rows (``records.pad_rows``).
+matrix's bytes (``records.pad_bytes``), rows (``records.pad_rows``), cells
+(``records.pad_cells``: rows times width) and the samples its rows hold
+(``records.pad_samples``: the sum of their true lengths).
 """
 
 from __future__ import annotations
@@ -134,7 +136,7 @@ class RecordsView:
         """
         with profiler.span("records.pad"):
             out, lengths = self._padded_host(pad_to, dtype, rows)
-            _count_pad(out.nbytes, len(out))
+            _count_pad(out.nbytes, out.shape, int(lengths.sum()))
         return out, lengths
 
     def _padded_host(self, pad_to, dtype, rows) -> Tuple[np.ndarray, np.ndarray]:
@@ -175,7 +177,8 @@ class RecordsView:
         """
         with profiler.span("records.pad"):
             out, lens = self._padded_device(pad_to, dtype, device)
-            _count_pad(out.numel() * out.element_size(), len(out))
+            _count_pad(out.numel() * out.element_size(), tuple(out.shape),
+                       int(self._lengths.sum()))
         return out, lens
 
     def _padded_device(self, pad_to, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -215,9 +218,12 @@ class RecordsView:
         return signal.astype(np.float32), lengths
 
 
-def _count_pad(nbytes: int, rows: int) -> None:
+def _count_pad(nbytes: int, shape: Tuple[int, int], samples: int) -> None:
+    rows, width = shape
     profiler.count("records.pad_bytes", int(nbytes))
     profiler.count("records.pad_rows", int(rows))
+    profiler.count("records.pad_cells", int(rows) * int(width))
+    profiler.count("records.pad_samples", int(samples))
 
 
 def _torch_dtype(dtype: Any) -> torch.dtype:

@@ -30,7 +30,9 @@ from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
-LOG_CAPACITY = 1 << 16
+# a records request of 16 channels at ragged lengths logs about 20,000
+# records (three phases a filter batch): the log holds six
+LOG_CAPACITY = 1 << 17
 
 
 class Span(NamedTuple):

@@ -138,9 +138,15 @@ class ThresholdHitPlugin(Plugin):
         baselines_d: torch.Tensor,
         thresholds_d: torch.Tensor,
     ) -> dict:
-        """Composable device program: signal -> threshold runs."""
+        """Composable device program: signal -> threshold runs. The signal
+        past each row's length is -inf: a run's extended segment that
+        reaches the end of a padded record (the records source) takes no
+        padding sample as its height or into its integral, whatever the
+        polarity makes of the zeros there."""
         w32 = waves_d.to(torch.float32)
         signal = sign_d[:, None] * (w32 - baselines_d[:, None].to(torch.float32))
+        col = torch.arange(signal.shape[1], device=signal.device)
+        signal.masked_fill_(col[None, :] >= lengths_d[:, None], float("-inf"))
         if cfg["backend"] == "scan":
             from waveformanalysis_tpu_torch.ops.chain_scan_cuda import (
                 threshold_hits_scan,

@@ -292,9 +292,11 @@ def _filter_pool_on_device(context: Any, pool: np.ndarray, offsets: np.ndarray,
     their unsigned values; rows that start at a multiple of their length
     move as whole rows of the pool, others sample by sample. Profiler
     phases ``wave_pool_filtered.{upload,gather,filter,scatter,fetch}`` end
-    when the device is done."""
+    when the device is done; the count ``wave_pool_filtered.batches`` adds
+    the batches (one a (board, channel) and record length)."""
     dev = context.device
     prof = context.profiler
+    prof.count("wave_pool_filtered.batches", len(batches))
 
     def done() -> None:
         if dev.type == "cuda":
